@@ -13,19 +13,26 @@ Planning performs *all* validation — ``m > n`` degeneracy, the
 any backend dispatch.  The cache is LRU-bounded (``max_plans``); an
 evicted shape re-plans and reproduces bit-identical results.
 
-Routing table:
+Every plan carries two executables over the same rank walk: the forward
+and the cofactor-form VJP (DESIGN_GRAD.md).  Routing table:
 
-====================  ==========================================
-plan configuration    executable
-====================  ==========================================
-``m > n``             zeros on the plan's device (any backend)
-torch, scalar         ``radic._radic_det_flat`` (eager chunk walk)
-torch, batched        ``radic._radic_det_batched_flat_impl``
-cuda                  ``kernels.ops.radic_det[_batched]_cuda``
-====================  ==========================================
+* ``m > n`` (any backend): zeros on the plan's device; the pullback is
+  zeros like the input.
+* torch, scalar: ``radic._radic_det_flat`` (eager chunk walk);
+  ``radic._radic_det_grad_flat`` (the walk replayed).
+* torch, batched: ``radic._radic_det_batched_flat_impl``;
+  ``radic._radic_det_batched_grad_flat``.
+* cuda: ``kernels.ops.radic_det[_batched]_cuda``;
+  ``kernels.ops.radic_det[_batched]_grad_cuda``.
 
-Not in this module yet: mesh plans, the durable plan store
-(``persist_dir``/``prefill``) and gradients (``DetPlan.grad``).
+``DetPlan.differentiable(A)`` is the forward as a ``torch.autograd.Function``
+whose backward is the plan's ``grad_executable``; ``radic_det`` and
+``radic_det_batched`` return it, so ``torch.autograd.grad`` works on every
+backend.  The Function is ``once_differentiable``, like the reference's
+kernel backend.
+
+Not in this module yet: mesh plans and the durable plan store
+(``persist_dir``/``prefill``).
 """
 
 from __future__ import annotations
@@ -39,10 +46,12 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from .pascal import INT32_MAX, INT64_MAX, binom_table, comb
-from .radic import (_radic_det_batched_flat_impl, _radic_det_flat,
-                    resolve_device)
+from .radic import (_radic_det_batched_flat_impl,
+                    _radic_det_batched_grad_flat, _radic_det_flat,
+                    _radic_det_grad_flat, resolve_device)
 
 __all__ = ["DetPlan", "DetEngine", "PlanKey", "default_engine",
            "set_default_engine", "stable_key_hash", "validate_rank_space",
@@ -155,12 +164,37 @@ def stable_key_hash(key) -> int:
                           "big")
 
 
+class _PlanDet(torch.autograd.Function):
+    """The plan's forward, differentiable through its cofactor-form
+    backward (the reference's ``_make_differentiable``, engine.py:198).
+    The forward runs the plan's executable unchanged, so values are
+    bit-identical to a plain call; only the input is saved."""
+
+    @staticmethod
+    def forward(ctx, A, plan):
+        ctx.plan = plan
+        ctx.save_for_backward(A)
+        return plan.executable(A)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        (A,) = ctx.saved_tensors
+        return ctx.plan.grad_executable(A, ct), None
+
+
+def _zeros_grad(A: torch.Tensor, ct) -> torch.Tensor:
+    """m > n ⇒ det ≡ 0 ⇒ the pullback is identically zero."""
+    del ct
+    return torch.zeros_like(A)
+
+
 @dataclass(frozen=True, eq=False)
 class DetPlan:
-    """Immutable per-shape artifact: validated statics plus the
-    executable.  Calling the plan runs the executable on the plan's
-    device; host data is moved there first.  ``eq=False``: plans compare
-    by identity (the engine guarantees one plan per key)."""
+    """Immutable per-shape artifact: validated statics plus the forward
+    and gradient executables.  Calling the plan runs the executable on
+    the plan's device; host data is moved there first.  ``eq=False``:
+    plans compare by identity (the engine guarantees one plan per key)."""
 
     key: PlanKey
     total: int                  # C(n, m)
@@ -168,6 +202,9 @@ class DetPlan:
     degenerate: bool            # m > n: executable returns zeros
     table: Any = field(repr=False)          # Pascal table tensor or None
     executable: Callable = field(repr=False)
+    # ``grad_executable(A, ct) -> ∂/∂A``: the cofactor-form VJP over the
+    # same rank walk (DESIGN_GRAD.md)
+    grad_executable: Callable = field(repr=False)
 
     @property
     def m(self) -> int:
@@ -189,17 +226,26 @@ class DetPlan:
     def device(self) -> torch.device:
         return torch.device(self.key.device)
 
-    def __call__(self, A) -> torch.Tensor:
+    def _on_device(self, A) -> torch.Tensor:
         if not isinstance(A, torch.Tensor):
             A = torch.as_tensor(np.asarray(A))
-        return self.executable(A.to(self.device))
+        return A.to(self.device)
 
-    def grad(self, A, ct):
-        """Gradients are the next slice of the port (the backward kernel
-        ``radic_batched_grad_combo_kernel`` and its autograd Function)."""
-        raise NotImplementedError(
-            "DetPlan.grad: gradients are not ported yet (next slice: the "
-            "backward kernel radic_batched_grad_combo_kernel)")
+    def __call__(self, A) -> torch.Tensor:
+        return self.executable(self._on_device(A))
+
+    def grad(self, A, ct) -> torch.Tensor:
+        """Pull the cotangent(s) back through the determinant: scalar
+        plans take ``A (m, n)`` and a scalar ``ct``; batched plans take
+        ``As (B, m, n)`` and ``cts (B,)`` and return ``(B, m, n)``."""
+        A = self._on_device(A)
+        return self.grad_executable(
+            A, torch.as_tensor(ct, device=self.device))
+
+    def differentiable(self, A) -> torch.Tensor:
+        """The forward as a ``torch.autograd.Function`` whose backward is
+        :meth:`grad` (once differentiable)."""
+        return _PlanDet.apply(self._on_device(A), self)
 
 
 # -------------------------------------------------------------- the engine
@@ -292,7 +338,8 @@ class DetEngine:
                 shape = (A.shape[0],) if _batched else ()
                 return torch.zeros(shape, dtype=A.dtype, device=A.device)
             return DetPlan(key=key, total=total, chunk=0, degenerate=True,
-                           table=None, executable=execute)
+                           table=None, executable=execute,
+                           grad_executable=_zeros_grad)
         if key.backend == "cuda":
             return self._build_cuda(key, total)
         return self._build_torch(key, total)
@@ -304,27 +351,42 @@ class DetEngine:
         if not key.batched:
             def execute(A, _t=table, _total=total, _c=chunk, _k=key.kahan):
                 return _radic_det_flat(A, _t, _total, _c, _k)
+
+            def grad_execute(A, ct, _t=table, _total=total, _c=chunk):
+                return _radic_det_grad_flat(A, ct, _t, _total, _c)
         else:
-            def execute(As, _t=table, _total=total, _c=chunk, _m=m, _n=n):
+            def check(As, _m=m, _n=n):
                 if As.ndim != 3 or tuple(As.shape[1:]) != (_m, _n):
                     raise ValueError(
                         f"expected (B, {_m}, {_n}), got {tuple(As.shape)}")
+
+            def execute(As, _t=table, _total=total, _c=chunk):
+                check(As)
                 if As.shape[0] == 0:
                     return torch.zeros((0,), dtype=As.dtype,
                                        device=As.device)
                 return _radic_det_batched_flat_impl(As, _t, _total, _c)
+
+            def grad_execute(As, cts, _t=table, _total=total, _c=chunk):
+                check(As)
+                return _radic_det_batched_grad_flat(As, cts, _t, _total, _c)
         return DetPlan(key=key, total=total, chunk=chunk, degenerate=False,
-                       table=table, executable=execute)
+                       table=table, executable=execute,
+                       grad_executable=grad_execute)
 
     def _build_cuda(self, key: PlanKey, total: int) -> DetPlan:
         from repro_torch.kernels import ops  # lazy: kernels depend on core
         table = rank_table(key.n, key.m, backend="cuda", device=key.device)
-        fn = (ops.radic_det_batched_cuda if key.batched
-              else ops.radic_det_cuda)
+        fn, gfn = ((ops.radic_det_batched_cuda, ops.radic_det_batched_grad_cuda)
+                   if key.batched
+                   else (ops.radic_det_cuda, ops.radic_det_grad_cuda))
         execute = functools.partial(fn, q_start=0, count=total, table=table)
+        grad_execute = functools.partial(gfn, q_start=0, count=total,
+                                         table=table)
         return DetPlan(key=key, total=total,
                        chunk=int(min(key.chunk, max(total, 1))),
-                       degenerate=False, table=table, executable=execute)
+                       degenerate=False, table=table, executable=execute,
+                       grad_executable=grad_execute)
 
 
 # ------------------------------------------------------------ default engine

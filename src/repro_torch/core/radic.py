@@ -1,6 +1,6 @@
 """Radic determinant of an m×n matrix (paper Definition 3) — eager torch path.
 
-Port of ``repro/core/radic.py`` (forward only).  ``det(A) = Σ_q
+Port of ``repro/core/radic.py``.  ``det(A) = Σ_q
 (−1)^(r + s_q) · det(A[:, B_q])`` over all ``C(n, m)`` column subsets
 ``B_q`` in dictionary order, where ``r = m(m+1)/2`` and ``s_q`` is the
 (1-indexed) column sum of ``B_q``.
@@ -11,6 +11,15 @@ unranked independently, its transposed minors are gathered and fed to
 ``torch.linalg.det``, and the signed terms are accumulated.  The chunk
 walk is a plain Python loop (the reference's ``fori_loop``).  It runs on
 whatever device its input lies on.
+
+The backward pass is the reference's cofactor-form VJP (DESIGN_GRAD.md):
+each chunk unranks again exactly as the forward did and pulls the
+cotangent back through that chunk's minor sum, so memory stays O(chunk)
+and no autograd graph lives across chunks.  The pullback of one minor is
+its cofactor matrix, computed in closed form (:func:`cofactors`), not by
+autograd through ``torch.linalg.det``: that backward returns 0 instead of
+the cofactors for an exactly singular minor of rank m−1 (a zero column,
+or exact duplicate columns), where the Radic gradient is not 0.
 """
 
 from __future__ import annotations
@@ -21,7 +30,8 @@ import torch
 from .unrank import unrank_torch
 
 __all__ = ["radic_det", "radic_det_batched", "signed_minor_sum",
-           "signed_minor_sum_batched", "radic_sign", "resolve_device"]
+           "signed_minor_sum_batched", "signed_minor_pullback_batched",
+           "cofactors", "radic_sign", "resolve_device"]
 
 
 def radic_sign(combos: torch.Tensor, m: int) -> torch.Tensor:
@@ -64,6 +74,102 @@ def signed_minor_sum_batched(As: torch.Tensor, combos: torch.Tensor,
     if valid is not None:
         terms = torch.where(valid[None, :], terms, 0)
     return terms.sum(dim=1)
+
+
+_EXPLICIT_BATCH = 1 << 22   # elements per step of the explicit cofactors
+
+
+def _explicit_cofactors(M: torch.Tensor) -> torch.Tensor:
+    """cof[b, r, j] = (−1)^(r+j)·det(M[b] without row r and column j)
+    for every matrix of ``M (k, m, m)``, m ≥ 2 — right at any rank."""
+    k, m, _ = M.shape
+    keep = torch.tensor([[i for i in range(m) if i != d] for d in range(m)],
+                        dtype=torch.int64, device=M.device)     # (m, m-1)
+    signs = 1 - 2 * ((torch.arange(m, device=M.device)[:, None]
+                      + torch.arange(m, device=M.device)[None, :]) & 1)
+    out = torch.empty_like(M)
+    step = max(1, _EXPLICIT_BATCH // (m * m * (m - 1) * (m - 1)))
+    for s in range(0, k, step):
+        blk = M[s:s + step]
+        # sub[b, r, j] = blk[b][keep[r]][:, keep[j]]
+        sub = blk[:, keep[:, None, :, None], keep[None, :, None, :]]
+        out[s:s + step] = torch.linalg.det(sub) * signs.to(M.dtype)
+    return out
+
+
+def cofactors(M: torch.Tensor) -> torch.Tensor:
+    """The cofactor matrix of each matrix of ``M (..., m, m)``:
+    ``cof[..., r, j] = ∂det(M)/∂M[..., r, j] = det(M)·(M⁻¹)[j, r]``.
+
+    Nonsingular matrices take ``det·M⁻ᵀ`` from one LU factorisation; a
+    matrix with an exactly zero pivot takes its m² (m−1)×(m−1)
+    determinants, which is right at any rank (0, up to rounding, below
+    rank m−1) — the same split as the CUDA kernel,
+    ``csrc/radic_grad.cu``.  Never NaN for a finite input."""
+    m = M.shape[-1]
+    if m == 1:
+        return torch.ones_like(M)
+    batch = M.shape[:-2]
+    flat = M.reshape(-1, m, m)
+    LU, piv, _ = torch.linalg.lu_factor_ex(flat)
+    diag = LU.diagonal(dim1=-2, dim2=-1)
+    swaps = (piv != torch.arange(1, m + 1, dtype=piv.dtype,
+                                 device=piv.device)).sum(-1)
+    det = diag.prod(-1) * (1 - 2 * (swaps & 1)).to(flat.dtype)
+    eye = torch.eye(m, dtype=flat.dtype, device=flat.device).expand_as(flat)
+    inv = torch.linalg.lu_solve(LU, piv, eye)
+    cof = det[:, None, None] * inv.mT
+    singular = (diag == 0).any(-1)
+    if bool(singular.any()):
+        cof[singular] = _explicit_cofactors(flat[singular])
+    return cof.reshape(*batch, m, m)
+
+
+def _column_sums(vals: torch.Tensor, cols: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """``out[..., c] = Σ vals[..., k]`` over ``cols[k] == c``, for ``vals
+    (..., K)`` and ``cols (K,)`` in [0, n) → ``(..., n)``.
+
+    A scatter-add without atomics: the entries are sorted stably by
+    column, and each column's run is summed by a segmented Hillis–Steele
+    scan of elementwise adds.  The order of the adds depends on ``cols``
+    alone — the same on every device and for any leading shape, so a
+    matrix's sums do not depend on its batch or its slot."""
+    cols, order = torch.sort(cols, stable=True)
+    x = vals[..., order]
+    step = 1
+    while step < cols.numel():
+        same = cols[step:] == cols[:-step]     # same run, `step` apart
+        x = torch.cat([x[..., :step],
+                       x[..., step:] + torch.where(same, x[..., :-step], 0)],
+                      dim=-1)
+        step *= 2
+    last = torch.ones_like(cols, dtype=torch.bool)
+    last[:-1] = cols[1:] != cols[:-1]          # each run's last entry
+    out = vals.new_zeros(*vals.shape[:-1], n)
+    out[..., cols[last]] = x[..., last]
+    return out
+
+
+def signed_minor_pullback_batched(As: torch.Tensor, cts: torch.Tensor,
+                                  combos: torch.Tensor,
+                                  valid: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
+    """VJP of :func:`signed_minor_sum_batched` at ``As (B, m, n)`` for
+    cotangents ``cts (B,)`` → ``(B, m, n)``: each valid rank q adds
+    ``cts[b]·sign(B_q)·cof(A_b[:, B_q])[:, j]`` into column ``B_q[j]``,
+    in a fixed order (:func:`_column_sums`), so the result is
+    bit-identical from run to run and across batch slots."""
+    B, m, n = As.shape
+    minors = As.transpose(1, 2)[:, combos - 1].transpose(-2, -1)
+    w = cts.to(As.dtype)[:, None] \
+        * radic_sign(combos, m).to(As.dtype)[None, :]            # (B, C)
+    if valid is not None:
+        w = torch.where(valid[None, :], w, 0)
+    # (B, C, m rows, m positions) → (B, m rows, C·m columns)
+    contrib = (w[:, :, None, None] * cofactors(minors)).permute(0, 2, 1, 3)
+    return _column_sums(contrib.reshape(B, m, -1),
+                        (combos - 1).reshape(-1), n)
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -111,6 +217,34 @@ def _radic_det_batched_flat_impl(As: torch.Tensor, table: torch.Tensor,
     return acc.to(As.dtype)
 
 
+def _radic_det_batched_grad_flat(As: torch.Tensor, cts, table: torch.Tensor,
+                                 total: int, chunk: int) -> torch.Tensor:
+    """Batched cofactor VJP: ``As (B, m, n)``, ``cts (B,)`` → ``(B, m, n)``.
+    One shared unranking per chunk pulls back all B cotangents, and every
+    chunk's pullback is added to the running gradient: the forward's walk
+    replayed, O(chunk) memory.  The backward never compensates (the
+    Kahan terms of a scalar forward are arithmetic identities)."""
+    B, m, n = As.shape
+    X = As.detach().to(_compute_dtype(As.dtype))
+    cts = torch.as_tensor(cts, device=As.device).to(X.dtype).reshape(B)
+    num_chunks = -(-total // chunk)
+    idx = torch.arange(chunk, dtype=torch.int64, device=As.device)
+    g = torch.zeros_like(X)
+    for c in range(num_chunks):
+        qs = c * chunk + idx
+        valid = qs < total
+        combos = unrank_torch(torch.where(valid, qs, 0), n, m, table)
+        g = g + signed_minor_pullback_batched(X, cts, combos, valid)
+    return g.to(As.dtype)
+
+
+def _radic_det_grad_flat(A: torch.Tensor, ct, table: torch.Tensor,
+                         total: int, chunk: int) -> torch.Tensor:
+    """Scalar cofactor VJP: ``A (m, n)``, scalar ``ct`` → ``(m, n)``."""
+    return _radic_det_batched_grad_flat(A[None], torch.as_tensor(ct).reshape(1),
+                                        table, total, chunk)[0]
+
+
 def resolve_device(device) -> torch.device:
     """The device a plan or queue runs on: ``"cuda"`` unless the caller
     asks for another.  Without a card, ``"cuda"`` raises — nothing
@@ -147,7 +281,9 @@ def radic_det(A, *, chunk: int = 2048, kahan: bool = False,
     kernel (its plain torch version for a tensor on the CPU);
     ``backend="torch"`` runs the eager evaluator of this module.  A tensor
     is computed on its own device; a numpy array on ``device`` (default
-    ``"cuda"``).
+    ``"cuda"``).  The result is differentiable: ``torch.autograd.grad``
+    runs the plan's cofactor-form backward (the CUDA backward kernel, or
+    the replayed chunk walk of the torch backend).
     """
     from .engine import default_engine  # lazy: engine builds on this module
     dev = _entry_device(A, device)
@@ -155,7 +291,7 @@ def radic_det(A, *, chunk: int = 2048, kahan: bool = False,
     m, n = A.shape
     return default_engine().plan(
         m, n, batched=False, dtype=A.dtype, chunk=chunk, kahan=kahan,
-        backend=backend, device=dev)(A)
+        backend=backend, device=dev).differentiable(A)
 
 
 def radic_det_batched(As, *, chunk: int = 2048, backend: str = "cuda",
@@ -165,7 +301,8 @@ def radic_det_batched(As, *, chunk: int = 2048, backend: str = "cuda",
     The whole batch shares one (m, n) shape, hence one C(n, m) rank
     space, one Pascal table and one unranking per chunk.  Heterogeneously
     shaped inputs should be bucketed by shape first; see
-    :mod:`repro_torch.launch.det_serve`.  Returns ``(B,)``.
+    :mod:`repro_torch.launch.det_serve`.  Returns ``(B,)``,
+    differentiable like :func:`radic_det`.
     """
     from .engine import default_engine  # lazy: engine builds on this module
     dev = _entry_device(As, device)
@@ -177,4 +314,4 @@ def radic_det_batched(As, *, chunk: int = 2048, backend: str = "cuda",
         return torch.zeros((0,), dtype=As.dtype, device=As.device)
     return default_engine().plan(
         m, n, batched=True, dtype=As.dtype, chunk=chunk, backend=backend,
-        device=dev)(As)
+        device=dev).differentiable(As)

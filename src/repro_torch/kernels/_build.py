@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
-``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, which is loaded with ``ctypes`` (no PyTorch
-headers, so the build takes seconds).  The library goes into
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into an object file,
+all sources at once in parallel processes, and links the objects into one
+shared library with a plain C interface, which is loaded with ``ctypes``
+(no PyTorch headers, so the build takes seconds).  The library goes into
 ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``), named by a hash of the sources, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  A missing ``nvcc`` or a
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -60,18 +61,41 @@ def _digest() -> str:
 
 
 def _compile(out: Path) -> str:
+    """Compile every source to an object in parallel, then link them into
+    ``out``; returns the compilers' combined output."""
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{out.stem}.{p.stem}.{os.getpid()}.o")
+            for p in _sources()]
+    jobs = [([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)], o)
+            for p, o in zip(_sources(), objs)]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd, _ in jobs]
+    logs, failed = [], None
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        logs.append(text)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, text)
+    try:
+        if failed is None:
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed = (cmd, proc.returncode, proc.stdout + proc.stderr)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    if failed is not None:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+        cmd, rc, text = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return proc.stdout + proc.stderr
+    return "".join(logs)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -79,6 +103,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.radic_batched_partial.argtypes = [vp, i32, i32, i32, vp, i32, i64,
                                           vp, i32, vp, vp]
     lib.radic_batched_partial.restype = i32
+    lib.radic_bygrid_partial.argtypes = [vp, i32, i32, i32, vp, i32, i64,
+                                         vp, i32, vp, vp]
+    lib.radic_bygrid_partial.restype = i32
+    lib.radic_batched_grad_partial.argtypes = [vp, vp, i32, i32, i32, vp,
+                                               i32, i64, vp, i32, vp, vp]
+    lib.radic_batched_grad_partial.restype = i32
+    lib.radic_grad_tile.argtypes = [i32]
+    lib.radic_grad_tile.restype = i32
+    lib.radic_unrank.argtypes = [vp, i32, i32, i32, vp, vp, i32, vp]
+    lib.radic_unrank.restype = i32
+    lib.radic_minor_det.argtypes = [vp, i32, i32, i32, vp, i32, vp]
+    lib.radic_minor_det.restype = i32
     lib.radic_error_string.argtypes = [i32]
     lib.radic_error_string.restype = ctypes.c_char_p
     return lib

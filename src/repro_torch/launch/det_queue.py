@@ -30,7 +30,10 @@ bit-identical alone or in any batch.
 The dispatcher holds :class:`repro_torch.core.engine.DetPlan` s from one
 LRU-bounded :class:`repro_torch.core.engine.DetEngine`, and admission
 control (``max_pending`` + :class:`LoadShedError`) bounds the backlog
-under overload.  Gradient requests are not served yet.
+under overload.  Gradient requests (``submit(A, grad=True,
+cotangent=ct)``) ride the same pipeline in batches of their own: the
+stager dispatches the plan's cofactor-form VJP (``DetPlan.grad``) with the
+batch's cotangents, and each request resolves to its ``(m, n)`` array.
 """
 
 from __future__ import annotations
@@ -260,8 +263,8 @@ class Request:
     """One queued matrix plus its delivery endpoints.
 
     ``grad``/``ct`` mark a gradient request (the cofactor-form VJP with
-    scalar cotangent ``ct``); the planner groups them as the reference
-    does, but this queue does not serve them yet.
+    scalar cotangent ``ct``): its future resolves to the ``(m, n)``
+    ndarray ``ct · d(det)/dA`` instead of a float.
     """
     seq: int
     array: np.ndarray          # host copy, already the serving dtype
@@ -455,10 +458,6 @@ class DetQueue:
         elif len(grads) != len(arrs):
             raise ValueError(
                 f"grads length {len(grads)} != matrices {len(arrs)}")
-        if any(g for g, _ in grads):
-            raise NotImplementedError(
-                "gradient requests are not ported yet (next slice: the "
-                "backward kernel radic_batched_grad_combo_kernel)")
         futs: list[Future] = []
         shed: list[Request] = []
         with self._wake:
@@ -506,8 +505,10 @@ class DetQueue:
     def submit(self, A, *, grad: bool = False,
                cotangent: float = 1.0) -> Future:
         """Enqueue one matrix; returns a ``Future`` carrying ``.seq``.
-        ``grad=True`` raises ``NotImplementedError``: gradient requests
-        are the next slice of the port."""
+
+        ``grad=True`` makes it a gradient request: the future resolves to
+        the ``(m, n)`` ndarray ``cotangent · d(det)/dA`` (the cofactor-form
+        VJP, DESIGN_GRAD.md) instead of the determinant."""
         return self._enqueue([self._prepare(A)],
                              [(grad, cotangent)])[0]
 
@@ -515,7 +516,7 @@ class DetQueue:
         """Enqueue a burst atomically: the stager sees one deep snapshot
         (full batches, load-aware re-bucketing) instead of a trickle.
         ``grads`` optionally pairs each matrix with ``(grad, cotangent)``
-        (see :meth:`submit`: only value requests are served)."""
+        (see :meth:`submit`)."""
         return self._enqueue([self._prepare(A) for A in mats], grads)
 
     def poll(self, max_items: int | None = None,
@@ -558,6 +559,7 @@ class DetQueue:
     def _zero_stats() -> dict:
         return {
             "submitted": 0, "completed": 0, "batches": 0, "dispatches": 0,
+            "grad_dispatches": 0,
             "merged_requests": 0, "padded_slots": 0, "ranks": 0,
             "responses_dropped": 0, "shed": 0, "backlog_peak": 0,
             "stage_s": 0.0, "complete_s": 0.0,
@@ -751,15 +753,27 @@ class DetQueue:
 
     def _complete_trivial(self, plan: StagePlan):
         """Deliver an m > n batch (det = 0 by definition) straight from
-        the stager: no device work at all."""
-        self._deliver(plan, [0.0] * len(plan.requests), count_batch=True)
+        the stager: no device work at all.  A grad request's pullback is
+        the all-zero ``(m, n)`` array for the same reason."""
+        if plan.grad:
+            m, n = plan.shape
+            outs = [np.zeros((m, n), dtype=self.dtype)
+                    for _ in plan.requests]
+        else:
+            outs = [0.0] * len(plan.requests)
+        self._deliver(plan, outs, count_batch=True)
 
     def _stage_one(self, plan: StagePlan):
         """Pad + stack into a host buffer and begin the upload for one
-        planned batch → ``(device stack, host stack)``.  On a card the
-        host stack is pinned and the copy is asynchronous on the current
-        stream; the caller keeps the host stack alive until the batch
-        completes."""
+        planned batch → ``(device stack, device cotangents or None, host
+        buffers)``.  On a card the host buffers are pinned and the copies
+        are asynchronous on the current stream; the caller keeps the host
+        buffers alive until the batch completes.
+
+        Grad batches also stage the per-matrix cotangent vector; padded
+        slots carry ``ct = 0`` and are sliced off before delivery, so
+        whatever the pullback produces for the all-zero padding matrices
+        never reaches a caller."""
         m, n = plan.shape
         cuda = self.device.type == "cuda"
         host = torch.zeros((plan.capacity, m, n), dtype=self._torch_dtype,
@@ -768,7 +782,14 @@ class DetQueue:
         for j, r in enumerate(plan.requests):
             rm, rn = r.shape
             view[j, :rm, :rn] = r.array   # zero col-pad is det-exact
-        return host.to(self.device, non_blocking=cuda), host
+        dev = host.to(self.device, non_blocking=cuda)
+        if not plan.grad:
+            return dev, None, (host,)
+        host_ct = torch.zeros((plan.capacity,), dtype=self._torch_dtype,
+                              pin_memory=cuda)
+        host_ct.numpy()[:len(plan.requests)] = [r.ct for r in plan.requests]
+        return dev, host_ct.to(self.device, non_blocking=cuda), \
+            (host, host_ct)
 
     def _stager(self):
         try:
@@ -805,11 +826,14 @@ class DetQueue:
                             self._complete_trivial(plan)
                             continue
                         try:
-                            dev, host = self._stage_one(plan)
+                            dev, cts, host = self._stage_one(plan)
                             exe = self._plan(plan.shape, plan.capacity)
                             # async dispatch: the launch only enqueues
-                            # device work; the event marks its end
-                            dets = exe(dev)
+                            # device work (grad batches enter the plan's
+                            # VJP, value batches its forward); the event
+                            # marks its end
+                            dets = exe.grad(dev, cts) if plan.grad \
+                                else exe(dev)
                             done = None
                             if self.device.type == "cuda":
                                 done = torch.cuda.Event()
@@ -825,6 +849,7 @@ class DetQueue:
                             st = self.stats
                             st["batches"] += 1
                             st["dispatches"] += 1  # m > n handled above
+                            st["grad_dispatches"] += int(plan.grad)
                             st["merged_requests"] += plan.merged_count
                             st["padded_slots"] += (plan.capacity
                                                    - len(plan.requests))
@@ -858,7 +883,9 @@ class DetQueue:
                 del host  # the upload has completed: release the pin
                 k = len(plan.requests)
                 m, n = plan.shape
-                outs = vals[:k].tolist()
+                # grad batches deliver the (m, n) arrays themselves;
+                # value batches unpack the (capacity,) dets to floats
+                outs = list(vals[:k]) if plan.grad else vals[:k].tolist()
                 self._deliver(plan, outs,
                               ranks=comb(n, m) * k,
                               complete_s=time.perf_counter() - t0)

@@ -12,11 +12,24 @@ C(n, m) rank space = one Pascal table), padded along the batch dimension
   PYTHONPATH=src python -m repro_torch.launch.det_serve --num 64 \\
       --device cpu --backend torch --sync
 
+``--grad-frac f`` submits a seed-derived fraction of the requests as
+gradient requests (cotangent 1.0, the reference's mix for the same seed);
+their results are the ``(m, n)`` arrays d(det)/dA, served through the
+plan's backward (the CUDA backward kernel on the ``cuda`` backend).
+
 There is no warm pass: nothing is compiled per shape, and the kernel
 library is built before the timed pass.  The front, transport and elastic
 flags of the reference (``--workers``, ``--listen``, ``--connect``,
 ``--join``, ``--accept``, ``--autoscale``, ``--plan-store``,
-``--prefill``, ``--grad-frac``) are not ported yet.
+``--prefill``) are not ported yet.
+
+``--verify`` checks every result on a different code path: a value
+against the exact enumeration oracle (``radic_det_oracle``) when its rank
+space holds at most ``ORACLE_MAX_RANKS`` minors, else against the torch
+backend in float64 on the serving device, one matrix at a time and
+unpadded (the oracle's Python loop would take hours at (8, 32)); a
+gradient against ``torch.autograd.grad`` of the torch backend's
+``radic_det`` in float64, one matrix at a time and unpadded.
 """
 
 from __future__ import annotations
@@ -27,13 +40,17 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import comb, radic_det_batched
+from repro_torch.core import (comb, radic_det, radic_det_batched,
+                              radic_det_oracle)
 from repro_torch.core.radic import resolve_device
 from repro_torch.launch.det_queue import (BucketPolicy, DetQueue,
                                           LoadShedError, bucket_by_shape,
                                           pad_capacity)
 
 __all__ = ["bucket_by_shape", "pad_capacity", "drain_queue", "main"]
+
+ORACLE_MAX_RANKS = 1 << 10   # --verify: values past this use float64 torch
+VERIFY_CHUNK = 1 << 18       # --verify: ranks per step of the torch backend
 
 
 def drain_queue(mats, *, chunk: int = 2048, backend: str = "cuda",
@@ -77,11 +94,13 @@ def drain_queue(mats, *, chunk: int = 2048, backend: str = "cuda",
     return out, stats
 
 
-def _serve_tolerating_sheds(q, mats):
+def _serve_tolerating_sheds(q, mats, grads=None):
     """Submit-all + wait-all like ``DetQueue.serve``, but a shed request
     yields ``None`` instead of raising (``--max-pending`` sheds a burst
-    larger than its bound by design)."""
-    futs = q.submit_many(mats)
+    larger than its bound by design).  ``grads`` is the per-request
+    ``(grad, cotangent)`` list; grad requests resolve to ``(m, n)``
+    ndarrays instead of floats."""
+    futs = q.submit_many(mats, grads)
     dets = []
     for f in futs:
         try:
@@ -102,6 +121,41 @@ def _random_queue(num: int, max_m: int, max_n: int, seed: int):
         n = int(rng.integers(m, max_n + 1))
         mats.append(rng.normal(size=(m, n)).astype(np.float32))
     return mats
+
+
+def _grad_mix(num: int, grad_frac: float, seed: int):
+    """The reference's value/grad mix: seed-derived, so the same command
+    line always submits the same mix (None without gradients)."""
+    if grad_frac <= 0:
+        return None
+    grng = np.random.default_rng(seed + 1)
+    return [(bool(grng.random() < grad_frac), 1.0) for _ in range(num)]
+
+
+def _verify(mats, dets, grads, device: torch.device) -> tuple[float, float]:
+    """Worst relative error of the served values and gradients against
+    the checks of the module docstring."""
+    worst = worst_g = 0.0
+    for i, (A, got) in enumerate(zip(mats, dets)):
+        if got is None:  # shed under --max-pending: nothing to check
+            continue
+        m, n = A.shape
+        T = torch.from_numpy(np.asarray(A, dtype=np.float64)).to(device)
+        if grads is not None and grads[i][0]:
+            T.requires_grad_(True)
+            (want_g,) = torch.autograd.grad(
+                radic_det(T, backend="torch", chunk=VERIFY_CHUNK), T)
+            want_g = want_g.cpu().numpy()
+            err = np.max(np.abs(np.asarray(got, dtype=np.float64) - want_g))
+            worst_g = max(worst_g,
+                          err / max(1.0, float(np.max(np.abs(want_g)))))
+            continue
+        if comb(n, m) <= ORACLE_MAX_RANKS:
+            want = radic_det_oracle(np.asarray(A))
+        else:
+            want = float(radic_det(T, backend="torch", chunk=VERIFY_CHUNK))
+        worst = max(worst, abs(got - want) / max(1.0, abs(want)))
+    return worst, worst_g
 
 
 def _warm_device(device: torch.device, backend: str) -> None:
@@ -136,12 +190,24 @@ def main(argv=None):
                     help="admission-control backlog bound for the async "
                          "path (0 = unbounded; shed requests raise "
                          "LoadShedError on their futures)")
+    ap.add_argument("--grad-frac", type=float, default=0.0,
+                    help="fraction of requests submitted as gradient "
+                         "requests (cotangent 1.0): their futures resolve "
+                         "to the (m, n) ndarray d(det)/dA instead of a "
+                         "float — async path only (DESIGN_GRAD.md)")
     ap.add_argument("--verify", action="store_true",
-                    help="cross-check every result against the exact "
-                         "oracle")
+                    help="cross-check every result: values against the "
+                         "exact oracle (float64 torch past "
+                         f"{ORACLE_MAX_RANKS} minors), gradients against "
+                         "float64 autograd of the torch backend")
     args = ap.parse_args(argv)
+    if not 0.0 <= args.grad_frac <= 1.0:
+        ap.error("--grad-frac must be in [0, 1]")
+    if args.grad_frac > 0 and args.sync:
+        ap.error("--grad-frac needs the async path (drop --sync)")
     device = resolve_device(args.device)
     mats = _random_queue(args.num, args.max_m, args.max_n, args.seed)
+    grads = _grad_mix(args.num, args.grad_frac, args.seed)
     _warm_device(device, args.backend)
 
     if args.sync:
@@ -164,12 +230,13 @@ def main(argv=None):
                       max_pending=args.max_pending or None,
                       device=device) as q:
             t0 = time.perf_counter()
-            dets = _serve_tolerating_sheds(q, mats)
+            dets = _serve_tolerating_sheds(q, mats, grads)
             wall = time.perf_counter() - t0
             stats = q.snapshot()
         print(f"# det_serve[async/{args.policy}]: {args.num} requests, "
               f"backend={args.backend}, device={device}")
         print(f"batches={stats['batches']} dispatches={stats['dispatches']} "
+              f"grad_dispatches={stats['grad_dispatches']} "
               f"merged_requests={stats['merged_requests']} "
               f"padded_slots={stats['padded_slots']} "
               f"shed={stats['shed']} backlog_peak={stats['backlog_peak']} "
@@ -182,16 +249,15 @@ def main(argv=None):
     print(f"total,{args.num} mats,{wall:.4f}s,{args.num / wall:.1f} mats/s")
 
     if args.verify:
-        from repro_torch.core import radic_det_oracle
-        worst = 0.0
-        for A, got in zip(mats, dets):
-            if got is None:  # shed under --max-pending: nothing to check
-                continue
-            want = radic_det_oracle(np.asarray(A))
-            worst = max(worst, abs(got - want) / max(1.0, abs(want)))
-        print(f"verify: worst rel err {worst:.2e}")
+        worst, worst_g = _verify(mats, dets, grads, device)
+        print(f"verify: worst rel err {worst:.2e}"
+              + (f", worst grad rel err {worst_g:.2e}"
+                 if grads is not None else ""))
         if worst > 2e-3:
             raise AssertionError(f"verify: worst rel err {worst:.2e} > 2e-3")
+        if worst_g > 2e-3:
+            raise AssertionError(
+                f"verify: worst grad rel err {worst_g:.2e} > 2e-3")
     return dets, stats
 
 

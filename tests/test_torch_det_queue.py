@@ -216,12 +216,19 @@ def test_batch_error_fails_its_futures_and_reaches_poll(shape, exc):
 
 
 def test_gradient_requests_are_the_next_slice():
+    """Gradient requests, the slice after the value path, are served: each
+    resolves to its (m, n) array, equal to the plan's own backward."""
+    A = np.random.default_rng(4).normal(size=(2, 4)).astype(np.float32)
     with DetQueue(device=CPU) as q:
-        with pytest.raises(NotImplementedError, match="next slice"):
-            q.submit(np.ones((2, 4), np.float32), grad=True)
-        with pytest.raises(NotImplementedError):
-            q.submit_many([np.ones((2, 4), np.float32)], [(True, 1.0)])
-        assert q.snapshot()["submitted"] == 0
+        one = q.submit(A, grad=True, cotangent=2.0).result(120)
+        many = q.submit_many([A], [(True, 1.0)])[0].result(120)
+        stats = q.snapshot()
+    assert stats["submitted"] == 2 and stats["grad_dispatches"] == 2
+    plan = DetEngine().plan(2, 4, capacity=1, device=CPU)
+    want = plan.grad(torch.from_numpy(A[None]), torch.ones(1))[0].numpy()
+    assert isinstance(many, np.ndarray) and many.shape == (2, 4)
+    np.testing.assert_array_equal(many, want)
+    np.testing.assert_allclose(one, 2.0 * want, rtol=1e-6, atol=1e-7)
 
 
 def test_admission_control_sheds_deterministically():

@@ -52,3 +52,32 @@ def test_cli_rejects_reference_only_flags():
         det_serve.main(["--device", "cpu", "--workers", "2"])
     with pytest.raises(SystemExit):
         det_serve.main(["--device", "cpu", "--backend", "pallas"])
+
+
+def test_grad_mix_equals_reference_and_verifies(capsys):
+    """--grad-frac submits the reference's value/grad mix for the seed; the
+    verify leg checks every gradient against float64 autograd."""
+    argv = ["--num", "24", "--grad-frac", "0.25", "--verify"]
+    dets, stats = det_serve.main([*argv, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert re.search(r"verify: worst rel err [0-9.e+-]+, worst grad rel "
+                     r"err [0-9.e+-]+", out)
+    want, ref_stats = ref_serve.main(argv)
+    capsys.readouterr()
+    mix = det_serve._grad_mix(24, 0.25, 0)
+    grng = np.random.default_rng(1)
+    assert mix == [(bool(grng.random() < 0.25), 1.0) for _ in range(24)]
+    assert sum(g for g, _ in mix) == stats["grad_dispatches"] > 0
+    for (g, _), got, ref_got in zip(mix, dets, want):
+        if g:
+            assert isinstance(got, np.ndarray) and got.shape == ref_got.shape
+            np.testing.assert_allclose(got, ref_got, rtol=1e-3, atol=1e-4)
+        else:
+            np.testing.assert_allclose(got, ref_got, rtol=1e-3, atol=1e-4)
+
+
+def test_grad_frac_is_async_only():
+    with pytest.raises(SystemExit):
+        det_serve.main(["--device", "cpu", "--grad-frac", "0.5", "--sync"])
+    with pytest.raises(SystemExit):
+        det_serve.main(["--device", "cpu", "--grad-frac", "1.5"])

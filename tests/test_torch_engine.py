@@ -11,7 +11,7 @@ from repro.core import engine as ref_engine  # noqa: E402
 from repro_torch.core import (DetEngine, default_engine, radic_det,  # noqa: E402
                               radic_det_batched, set_default_engine,
                               stable_key_hash, validate_rank_space)
-from repro_torch.core.engine import CUDA_MAX_M, PlanKey  # noqa: E402
+from repro_torch.core.engine import BACKENDS, CUDA_MAX_M, PlanKey  # noqa: E402
 from repro_torch.core.pascal import INT32_MAX, comb  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -186,9 +186,19 @@ def test_cuda_device_needs_a_card():
 
 
 def test_grad_is_the_next_slice():
-    plan = DetEngine().plan(2, 6, device=CPU)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        plan.grad(torch.ones(1, 2, 6), torch.ones(1))
+    """DetPlan.grad, the slice after the value path, pulls cotangents back
+    on both backends: the torch backend's replayed walk and the kernel's
+    plain version agree, and a degenerate plan's pullback is zeros."""
+    As = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 2, 6)).astype(np.float32))
+    cts = torch.tensor([1.0, -0.5])
+    got = {b: DetEngine().plan(2, 6, device=CPU, backend=b).grad(As, cts)
+           for b in BACKENDS}
+    assert got["cuda"].shape == (2, 2, 6)
+    np.testing.assert_allclose(got["cuda"].numpy(), got["torch"].numpy(),
+                               rtol=1e-4, atol=1e-5)
+    zero = DetEngine().plan(3, 2, device=CPU).grad(torch.ones(2, 3, 2), cts)
+    assert zero.shape == (2, 3, 2) and not zero.any()
 
 
 def test_default_engine_is_shared_and_swappable():

@@ -8,13 +8,19 @@ It builds the kernels from ``src/repro_torch/kernels/csrc/`` (one ``nvcc``
 per source, all at once) and runs these phases, each printing its lines:
 
 1. device: the card's name and power limit, torch/CUDA versions, build
-   time and the compiler's register/spill report;
+   time and the compiler's register/spill report, K3's rank tile for each
+   m, the shared memory per block of K1 and K3 at a few shapes, and static
+   SASS instruction counts by opcode of both kernels at m = 8
+   (``cuobjdump``, where the toolkit has it);
 2. K1 (``radic_batched_partial_cuda``) against its plain torch version in
-   float64 on the card: shapes, batch sizes, partial rank ranges, singular
-   minors, the top ranks of C(43, 10) just under 2**31, the plan-time
-   guards, determinism and batch-slot independence;
+   float64 on the card: shapes, batch sizes, partial rank ranges (shorter
+   than one thread's run, straddling runs, tiles and blocks; n = m, m = 1,
+   m = 16), singular minors, the top ranks of C(43, 10) just under 2**31,
+   the plan-time guards, determinism and batch-slot independence;
 3. K2 (``radic_partial_cuda``) against its plain version: the paper's
-   (5, 24) over its full rank space, and ranks [6e7, 6.4e7) of (10, 34);
+   (5, 24) over its full rank space, ranks [6e7, 6.4e7) of (10, 34), and
+   short ranges of (10, 34) that straddle runs and tiles or end at its
+   last rank;
 4. serving end to end: ``repro_torch.launch.det_serve.main`` on 512
    requests up to (8, 32) through the async DetQueue, every result held
    against the plain version in float64, K1's launch count equal to the
@@ -23,7 +29,10 @@ per source, all at once) and runs these phases, each printing its lines:
 5. K3 (``radic_batched_grad_partial_cuda``, the backward kernel) against
    its plain version in float64, by the serving verify's rule for
    gradients (``grad_rel_err``): shapes, batch sizes and cotangents with
-   zeros and negatives, partial rank ranges, the top ranks of C(43, 10),
+   zeros and negatives, m = 13, 14 and 16, shapes and ranges whose column
+   lists hold (nearly) the whole tile, wide n at m = 1, 2 and 4 (column
+   tables of up to T·m slots), partial rank ranges, the top ranks of
+   C(43, 10),
    the four singular inputs (zero column, duplicate columns, rank 1,
    exact integers), stacks with a duplicate or a zero column at (8, 16)
    and (16, 20), m > n, the plan-time guard, determinism, batch-slot
@@ -230,10 +239,11 @@ def ptxas_summary(log: str) -> list[str]:
         if hit:
             size, rest = int(hit.group(1)), hit.group(2)
             fam = rest[:size]
-            args = re.match(r"I((?:Li\d+E|[fd])+)E", rest[size:])
+            args = re.match(r"I((?:Li\d+E|Lb[01]E|[fd])+)E", rest[size:])
             inst = "<" + ",".join(
-                a or b for a, b in re.findall(r"Li(\d+)E|([fd])",
-                                              args.group(1))) + ">" \
+                a or {"0": "global", "1": "staged"}.get(b) or c
+                for a, b, c in re.findall(r"Li(\d+)E|Lb([01])E|([fd])",
+                                          args.group(1))) + ">" \
                 if args else ""
             continue
         spill = re.search(r"(\d+) bytes spill stores", line)
@@ -268,6 +278,54 @@ def phase_device() -> None:
     lib = _build.load()
     print(f"K3 rank tiles for m = 1..16: "
           f"{[lib.radic_grad_tile(m) for m in range(1, 17)]}")
+    for B, m, n in [(3, 8, 31), (1, 10, 34), (64, 6, 18), (64, 16, 20),
+                    (16, 5, 193), (3, 4, 477), (1, 1, 10 ** 6)]:
+        print(f"shared memory per block at ({B},{m},{n}): K1 "
+              f"{lib.radic_partial_smem_bytes(B, m, n)} B, K3 "
+              f"{lib.radic_grad_smem_bytes(B, m, n)} B")
+    for line in sass_counts(info["path"]):
+        print(line)
+
+
+SASS_OPS = ("FFMA", "FMUL", "FADD", "FSEL", "SEL", "MUFU", "LDS", "LDG",
+            "STS", "BAR", "ATOMS")
+# K1 at m = 8 (the staged instance where the kernel has one) and K3 at m = 8
+SASS_KERNELS = {"K1 radic_partial_kernel<8>":
+                r"radic20radic_partial_kernelILi8E(Lb1E)?E",
+                "K3 radic_grad_partial_kernel<8,T>":
+                r"radic25radic_grad_partial_kernelILi8ELi\d+EE"}
+
+
+def sass_counts(lib_path: str) -> list[str]:
+    """Static SASS instruction counts of K1's and K3's kernels at m = 8,
+    by opcode, from ``cuobjdump -sass`` of the built library (the
+    evidence the card gives without ``ncu``); a line saying so where the
+    toolkit has no ``cuobjdump``."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return ["sass: no cuobjdump on this machine (not measured)"]
+    dump = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    lines = []
+    for label, pattern in SASS_KERNELS.items():
+        body = None
+        for part in dump.split("Function : ")[1:]:
+            if re.search(pattern, part.split(None, 1)[0]):
+                body = part
+                break
+        if body is None:
+            lines.append(f"sass {label}: not found")
+            continue
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", line.split("*/", 1)[1].strip())
+               .split(None, 1)[0].split(".")[0]
+               for line in body.splitlines()
+               if re.match(r"\s*/\*[0-9a-f]{4,}\*/", line)]
+        counts = {op: sum(o == op for o in ops) for op in SASS_OPS}
+        lines.append(f"sass {label}: {len(ops)} instructions, " + ", ".join(
+            f"{op} {c}" for op, c in counts.items()))
+    return lines
 
 
 def phase_k1(errs: Errors, gen: torch.Generator) -> None:
@@ -295,13 +353,22 @@ def phase_k1(errs: Errors, gen: torch.Generator) -> None:
             errs.hold("K1", f"({m},{n}) B={B} full C={total}", got,
                       plain64(As, 0, total))
 
-    # partial ranges: inside one tile, straddling tiles, q_start > 0
+    # partial ranges: inside one run of 8 ranks, straddling runs, tiles
+    # (2,048 ranks) and blocks, q_start > 0; n = m (one rank), m = 1, and
+    # m = 16 at (16, 20) across a tile boundary
     m, n = 8, 16
     As = torch.randn(5, m, n, device="cuda", generator=gen)
-    for q0, cnt in [(0, 1), (255, 2), (100, 1000), (3000, 1283),
-                    (12000, 870)]:
+    for q0, cnt in [(0, 1), (3, 5), (6, 3), (255, 2), (100, 1000),
+                    (2045, 10), (2040, 4100), (3000, 1283), (12000, 870)]:
         got = ops.radic_det_batched_cuda(As, q0, cnt)
         errs.hold("K1", f"(8,16) ranks [{q0},{q0 + cnt})", got,
+                  plain64(As, q0, cnt))
+    for (m, n), (q0, cnt) in [((16, 20), (2040, 20)), ((16, 20), (7, 4000)),
+                              ((1, 5000), (2047, 2)), ((1, 5000), (5, 4990)),
+                              ((6, 6), (0, 1)), ((16, 16), (0, 1))]:
+        As = torch.randn(3, m, n, device="cuda", generator=gen)
+        got = ops.radic_det_batched_cuda(As, q0, cnt)
+        errs.hold("K1", f"({m},{n}) ranks [{q0},{q0 + cnt})", got,
                   plain64(As, q0, cnt))
 
     # duplicate and zero columns: many singular minors, det 0 not NaN
@@ -399,6 +466,12 @@ def phase_k2(errs: Errors, gen: torch.Generator) -> dict:
     got = ops.radic_det_cuda(big, 60_000_000, 4_000_000)
     errs.hold("K2", "(10,34) ranks [6e7,6.4e7)", got,
               plain64(big, 60_000_000, 4_000_000))
+    # ranges shorter than a run, straddling runs and tiles
+    for q0, cnt in [(0, 1), (1, 6), (2046, 5), (131_128_139, 1),
+                    (131_120_000, 8140)]:
+        got = ops.radic_det_cuda(big, q0, cnt)
+        errs.hold("K2", f"(10,34) ranks [{q0},{q0 + cnt})", got,
+                  plain64(big, q0, cnt))
     return {"launches": launches["K2"], "big": big}
 
 
@@ -537,7 +610,30 @@ def phase_k3(errs: Errors, gen: torch.Generator) -> None:
             if B > 1:
                 check(not bool(got[0].any()), "K3: ct = 0 is not exactly 0")
 
-    # partial ranges: inside one tile, straddling tiles and blocks
+    # m = 13 and 14 (the two translation units, both under the dynamic
+    # shared-memory opt-in), and columns held by (nearly) every rank of a
+    # tile, which loads their column lists with the whole tile: n = m + 1,
+    # and the first ranks of (6, 40), where columns 0..4 are in every rank
+    for m, n, B, q0, cnt in [(13, 16, 1, 0, None), (13, 16, 3, 0, None),
+                             (14, 17, 1, 0, None), (14, 17, 3, 0, None),
+                             (8, 9, 3, 0, None), (16, 17, 3, 0, None),
+                             (6, 40, 3, 0, 128), (6, 40, 3, 0, 4096)]:
+        cnt = comb(n, m) if cnt is None else cnt
+        As = torch.randn(B, m, n, device="cuda", generator=gen)
+        cts = cotangents(B)
+        got = ops.radic_det_batched_grad_cuda(As, cts, q0, cnt)
+        errs.hold("K3", f"({m},{n}) B={B} ranks [{q0},{q0 + cnt})", got,
+                  plain64(As, cts, q0, cnt))
+
+    # partial ranges: inside one tile, straddling tiles and blocks; wide n
+    # (column tables of up to T·m slots) at m = 1, 2 and 4
+    for m, n, q0, cnt in [(1, 100_000, 3, 70_000), (2, 700, 5000, 7000),
+                          (4, 477, 10 ** 6, 5000)]:
+        As = torch.randn(3, m, n, device="cuda", generator=gen)
+        cts = cotangents(3)
+        got = ops.radic_det_batched_grad_cuda(As, cts, q0, cnt)
+        errs.hold("K3", f"({m},{n}) ranks [{q0},{q0 + cnt})", got,
+                  plain64(As, cts, q0, cnt))
     m, n = 8, 16
     As = torch.randn(5, m, n, device="cuda", generator=gen)
     cts = cotangents(5)

@@ -111,6 +111,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.radic_batched_grad_partial.restype = i32
     lib.radic_grad_tile.argtypes = [i32]
     lib.radic_grad_tile.restype = i32
+    lib.radic_partial_smem_bytes.argtypes = [i32, i32, i32]
+    lib.radic_partial_smem_bytes.restype = i32
+    lib.radic_grad_smem_bytes.argtypes = [i32, i32, i32]
+    lib.radic_grad_smem_bytes.restype = i32
     lib.radic_unrank.argtypes = [vp, i32, i32, i32, vp, vp, i32, vp]
     lib.radic_unrank.restype = i32
     lib.radic_minor_det.argtypes = [vp, i32, i32, i32, vp, i32, vp]

@@ -13,32 +13,51 @@
 // and a small Pascal table, the output B*m*n floats; each (rank, matrix)
 // pair costs an LU factorisation, det(U)*U^-1, a product with L^-1 and
 // the m^2 scaled adds, about 2m^3 flops.  Design:
-//   * one thread per rank, T(m) ranks per tile (grad_tile, radic_grad.cuh): the
-//     rank is unranked once (common.cuh) and reused for every matrix of
-//     the block's batch slice (gridDim.y slices B by kBatchChunk);
+//   * one thread per rank, T(m) ranks per tile (grad_tile, radic_grad.cuh:
+//     256 ranks at m <= 5 down to 32 at m >= 12, so that the tile's
+//     cofactors take 32 KB): the rank is unranked once (common.cuh) and
+//     reused for every matrix of the block's batch slice (gridDim.y slices
+//     B by kBatchChunk);
 //   * cofactors in registers, never divided by det: when every pivot of
 //     the partial-pivot LU is nonzero, cof = det(U) U^-1 L^-1 (up to the
 //     row permutation and its sign), with det(U) U^-1 built column by
-//     column from products of the other pivots.  When a pivot is exactly
+//     column from products of the other pivots; one reciprocal per pivot
+//     (the LU's multipliers as corrected products, quotient in
+//     common.cuh) and per row of U, no division per entry.  When a pivot is exactly
 //     zero (duplicate or zero columns, the queue's zero padding), the m^2
 //     cofactors are computed directly as (m-1)x(m-1) determinants: right
 //     at any rank (0, up to rounding, below rank m-1).  A matrix whose
 //     cotangent is 0 (queue padding) contributes exactly 0 without any
 //     arithmetic;
-//   * a deterministic scatter, no float atomics: the tile's scaled
-//     cofactors go to shared memory; then each thread owns entries (r, c)
-//     of the block's (m, n) gradient and adds the tile's contributions in
-//     rank order to its running partial partials[g][b][r][c] (a slice only
-//     this block touches).  A second kernel adds the G partials of each
-//     entry in order of g.  The tile T(m), the block count G (a function
-//     of count, m and n) and both orders never depend on B or on a
+//   * a deterministic scatter through a per-tile column index, no float
+//     atomics.  Once per tile, for all matrices of the slice, the block
+//     builds an open-addressed table of the columns the tile holds (a
+//     power of two >= min(n, T*m) slots, so a tile's work never grows
+//     with n), each with a mask of the tile's ranks that hold it; the
+//     lanes of a warp that share a column insert it once (__match_any).
+//     A scan over the slots and prefix popcounts of the masks place every
+//     (rank, position) in its column's list, in rank order (integer
+//     atomics build the table; the lists do not depend on their order).
+//     The tile's scaled cofactors go to shared memory, each row of T
+//     ranks skewed by one word so that the owners' reads spread over the
+//     banks; then each item (column, row) adds its column's list, in rank
+//     order, to its running partial, kept in place in global memory
+//     (partials[g][b], a slice only this block touches) and updated for
+//     the tile's columns only; A and the Pascal table are read through
+//     L1.  (Staging the slice of A and the table in shared memory, and
+//     keeping the running partials there, measured within 0.6 % at
+//     (3, 8, 31), 2.4 % faster at (3, 10, 24) and 1.7 % slower at
+//     (3, 6, 30) on the H100: not kept.)  A second kernel adds the G
+//     partials of each entry in order of g.  The tile T(m), the block count G (a function of count,
+//     m and n), the index and both orders never depend on B or on a
 //     matrix's slot, so a gradient is bit-identical alone, inside any
 //     batch, and between the B = 1 and batched entries;
-//   * shared memory: T(m) * (m^2 + m) * 4 bytes <= 48 KB, so the tile
-//     shrinks from 256 ranks (m <= 6) to 32 (m >= 14); the partials
-//     buffer holds G*B*m*n floats with G*m*n <= 131072 (the wrapper's
-//     grad_grid_blocks), at most 512 KB per matrix: 32 MB at B = 64.
-//   * m = 16 spills registers (the LU keeps an m x m array); accepted.
+//   * shared memory: dynamic (grad_smem_words), opted in to the most any
+//     shape of that m takes (grad_max_bytes) once per device; the
+//     partials buffer holds G*B*m*n floats with G*m*n <= 131072 (the
+//     wrapper's grad_grid_blocks), at most 512 KB per matrix: 32 MB at
+//     B = 64.
+//   * m >= 14 spills registers (the LU keeps an m x m array); accepted.
 // The kernel lives in radic_grad.cuh; m = 14..16 are instantiated in
 // radic_grad_wide.cu, so that nvcc compiles the two halves in parallel.
 #include <cuda_runtime.h>
@@ -80,6 +99,15 @@ int radic_grad_tile(int m) {
 #undef GRAD_TILE_CASE
   }
   return 0;
+}
+
+// Shared memory per block of the gradient kernel (static and dynamic)
+// for a stack (B, m, n), in bytes; 0 outside 1 <= m <= kMaxM.
+int radic_grad_smem_bytes(int B, int m, int n) {
+  using namespace radic;
+  const int T = radic_grad_tile(m);
+  if (T == 0 || B < 1 || n < m) return 0;
+  return 4 * (grad_smem_words(T, m, n) + T / 32);
 }
 
 // As: (B, m, n) float32 contiguous; cts: (B,) float32; table: (n+1, m+1)

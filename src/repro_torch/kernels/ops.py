@@ -78,8 +78,9 @@ def radic_det_cuda(A: torch.Tensor, q_start: int = 0,
                    table: torch.Tensor | None = None) -> torch.Tensor:
     """Radic determinant (or a rank-range partial) of ``A (m, n)`` through
     the K2 entry.  ``tile`` is accepted for parity with the reference; the
-    CUDA kernel's rank tile is fixed at 256.  ``table`` is the int32
-    Pascal table, built here when not given (plans bind it once)."""
+    CUDA kernel's rank tile is fixed (256 threads × 8 ranks).  ``table``
+    is the int32 Pascal table, built here when not given (plans bind it
+    once)."""
     A = _tensor(A)
     m, n = A.shape
     if m > n:

@@ -39,9 +39,10 @@ __all__ = ["radic_batched_partial_cuda", "radic_batched_partial_plain",
            "radic_batched_grad_partial_plain", "radic_grad_partial_cuda",
            "radic_grad_partial_plain", "radic_batched_partial_bygrid_cuda",
            "grid_blocks", "grad_grid_blocks", "reset_launch_counts", "TILE",
-           "MAX_BLOCKS"]
+           "RUN", "MAX_BLOCKS"]
 
-TILE = 256            # ranks per tile == threads per block (common.cuh)
+TILE = 256            # threads per block (common.cuh kTile)
+RUN = 8               # consecutive ranks per thread (common.cuh kRun)
 BATCH_CHUNK = 16      # matrices per block (common.cuh kBatchChunk)
 MAX_BLOCKS = 1024     # fixed rank-walk width: bounds the partials buffer
 GRAD_MAX_BLOCKS = 1024      # the same for the gradient kernel (K3) ...
@@ -50,10 +51,11 @@ PLAIN_CHUNK = 2048    # ranks per step of the plain versions
 
 
 def grid_blocks(count: int) -> int:
-    """Blocks of the rank walk: one per tile, at most ``MAX_BLOCKS``.
-    A function of ``count`` only, so the reduction order (and with it
-    every bit of a result) never depends on the batch."""
-    return max(1, min(-(-count // TILE), MAX_BLOCKS))
+    """Blocks of the rank walk: one per tile of ``TILE`` threads ×
+    ``RUN`` ranks, at most ``MAX_BLOCKS``.  A function of ``count`` only,
+    so the reduction order (and with it every bit of a result) never
+    depends on the batch."""
+    return max(1, min(-(-count // (TILE * RUN)), MAX_BLOCKS))
 
 
 def grad_grid_blocks(count: int, m: int, n: int, tile: int) -> int:

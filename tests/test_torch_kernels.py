@@ -338,9 +338,96 @@ def test_grad_tiling_is_a_function_of_the_shape():
     partials stay within 512 KB per matrix."""
     for count, m, n, tile in [(1, 1, 5, 256), (10 ** 7, 8, 31, 128),
                               (4845, 16, 20, 32), (10 ** 6, 16, 40, 32),
-                              (10 ** 6, 1, 10 ** 6, 256)]:
+                              (10 ** 6, 1, 10 ** 6, 256),
+                              (10 ** 6, 5, 24, 256), (10 ** 5, 12, 30, 32),
+                              (5000, 6, 40, 128), (10 ** 6, 10, 34, 64),
+                              (10 ** 6, 2, 700, 256), (10 ** 6, 4, 477, 256),
+                              (560, 13, 16, 32)]:
         g = rf.grad_grid_blocks(count, m, n, tile)
         assert 1 <= g <= min(-(-count // tile), rf.GRAD_MAX_BLOCKS)
         assert g == 1 or g * m * n <= rf.GRAD_PARTIAL_FLOATS
     assert rf.grad_grid_blocks(10 ** 7, 8, 31, 128) == \
         rf.GRAD_PARTIAL_FLOATS // (8 * 31)
+
+
+# ------------------------------------------------ K1's rank partition
+def _kernel_runs(q_start: int, count: int):
+    """A torch model of the rank walk of K1 (and K2, K4): tile ``t`` of
+    ``TILE`` threads × ``RUN`` ranks goes to block ``t mod G``, and thread
+    ``i`` of the tile owns the run ``[(t·TILE + i)·RUN, +RUN)`` of
+    offsets, cut at ``count``.  Returns (block, first rank, length) of
+    every run that holds a rank, in the order the blocks walk them."""
+    G = rf.grid_blocks(count)
+    tiles = -(-count // (rf.TILE * rf.RUN))
+    t = torch.arange(tiles)
+    first = ((t[:, None] * rf.TILE + torch.arange(rf.TILE)[None, :])
+             * rf.RUN).reshape(-1)
+    block = (t % G).repeat_interleave(rf.TILE)
+    keep = first < count
+    first, block = first[keep], block[keep]
+    return block, q_start + first, (count - first).clamp(max=rf.RUN)
+
+
+@pytest.mark.parametrize("count", [1, 7, 8, 9, 2047, 2048, 2049, 4100,
+                                   2048 * 1024 + 3, 2048 * 1500])
+def test_grid_blocks_is_a_function_of_count(count):
+    """K1's block count depends on the rank count alone (never on B); every
+    block walks at least one tile and the (G, B) partials stay within
+    MAX_BLOCKS rows."""
+    G = rf.grid_blocks(count)
+    tiles = -(-count // (rf.TILE * rf.RUN))
+    assert G == max(1, min(tiles, rf.MAX_BLOCKS))
+    block, _, _ = _kernel_runs(0, count)
+    assert set(block.tolist()) == set(range(G))
+
+
+@pytest.mark.parametrize("q_start,count", [(0, 1), (3, 5), (0, 8), (5, 9),
+                                           (2045, 10), (2040, 4100),
+                                           (10 ** 6, 2048 * 1024 + 77)])
+def test_rank_runs_cover_the_range_once(q_start, count):
+    _, first, length = _kernel_runs(q_start, count)
+    assert bool((length >= 1).all()) and bool((length <= rf.RUN).all())
+    offs = torch.arange(rf.RUN)
+    ranks = (first[:, None] + offs)[offs[None, :] < length[:, None]]
+    assert ranks.numel() == count
+    assert torch.equal(ranks.sort().values,
+                       torch.arange(q_start, q_start + count))
+
+
+@pytest.mark.parametrize("n,m,q_start,count", [
+    (9, 4, 0, 126), (16, 8, 2040, 4100), (20, 16, 0, 4845), (12, 1, 0, 12),
+    (6, 6, 0, 1), (34, 10, 131_128_140 - 3000, 3000),
+    (43, 10, 1_917_334_783 - 5000, 5000)])
+def test_successor_walk_reproduces_unranking(n, m, q_start, count):
+    """Each thread unranks its run's first rank and steps with the
+    dictionary-order successor: over run boundaries, up to the last rank
+    of C(43, 10) just under 2**31, that gives unrank_torch's combos."""
+    from repro_torch.core.unrank import successor_torch, unrank_torch
+    table = torch.as_tensor(binom_table(n, m, dtype=np.int64))
+    _, first, length = _kernel_runs(q_start, count)
+    combo = unrank_torch(first, n, m, table)
+    steps = [combo]
+    for _ in range(rf.RUN - 1):
+        combo = successor_torch(combo, n)
+        steps.append(combo)
+    walk = torch.stack(steps, 1)
+    offs = torch.arange(rf.RUN)
+    valid = offs[None, :] < length[:, None]
+    want = unrank_torch((first[:, None] + offs)[valid], n, m, table)
+    assert torch.equal(walk[valid], want)
+
+
+def _ab_variants():
+    from repro_torch.kernels import kernel_ab
+    return [(e, v, edits) for e, (vs, _) in kernel_ab.EXPERIMENTS.items()
+            for v, edits in vs.items()]
+
+
+@pytest.mark.parametrize("experiment,variant,edits", _ab_variants(),
+                         ids=[f"{e}.{v}" for e, v, _ in _ab_variants()])
+def test_kernel_ab_variants_fit_the_sources(experiment, variant, edits):
+    """Each A/B variant of ``kernel_ab.py`` edits text that occurs exactly
+    once in the checkout's kernel sources, and changes it."""
+    for fn, old, new in edits:
+        assert (_build.CSRC / fn).read_text().count(old) == 1, (fn, old)
+        assert old != new

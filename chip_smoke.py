@@ -8,8 +8,9 @@ It builds the kernels from ``src/repro_torch/kernels/csrc/`` (one ``nvcc``
 per source, all at once) and runs these phases, each printing its lines:
 
 1. device: the card's name and power limit, torch/CUDA versions, build
-   time and the compiler's register/spill report, K3's rank tile for each
-   m, the shared memory per block of K1 and K3 at a few shapes, and static
+   time and the compiler's register/spill report (the warp kernels'
+   instances included), K3's rank tile for each m, the shared memory per
+   block of K1 and K3 at a few shapes (wide ones too), and static
    SASS instruction counts by opcode of both kernels at m = 8
    (``cuobjdump``, where the toolkit has it);
 2. K1 (``radic_batched_partial_cuda``) against its plain torch version in
@@ -48,12 +49,33 @@ per source, all at once) and runs these phases, each printing its lines:
    uncounted pass under ``torch.profiler``, as in phase 4;
 8. K4 (``radic_batched_partial_bygrid_cuda``) equal to K1 bit for bit,
    K5 (``unrank_cuda``) equal to its plain version on every rank of
-   C(24, 12), K6 (``minor_det_cuda``) against its plain version in
-   float64, singular and row-permuted matrices included; each entry is
+   C(24, 12) and on ranks of C(20000, 2) (a table too large to stage),
+   K6 (``minor_det_cuda``) against its plain version in float64 at
+   m = 8, 12 and 16 (staged tiles, and the unstaged read at m = 16 in
+   float64), singular and row-permuted matrices included; each entry is
    driven with the counts set to 0 just before and read just after;
 9. times: each kernel's device time per call (``torch.profiler``, the
    host's share left out) beside its bound, its plain version's wall time
-   per call and, for K6, ``torch.linalg.det``'s device time.
+   per call and, for K6, ``torch.linalg.det``'s device time; also K5 on
+   every rank of C(32, 8), K6 at (2**20, 8, 8) in float32 and float64, and
+   the warp kernels: K1, K4 at (3, 20, 30), K2 at (20, 30), K3 at
+   (3, 20, 26) and K6 at (65536, 32, 32).  It runs last, after 10 and 11,
+   so that every kernel it times has passed its checks;
+10. the wide path (m >= 17): the warp kernels of K1, K2 and K4 against
+   float64 plain at (3, 17, 20), (2, 20, 22), (3, 24, 26), (1, 33, 33),
+   (2, 32, 33) and ranges of (3, 20, 30), K4 == K1, the B = 1 entry ==
+   K1's slot, batch-slot independence and repeats bit for bit; K3 on the
+   same shapes and on stacks with a duplicate or a zero column at
+   (3, 20, 24), each run twice; K6 at m = 17, 32, 33, 64 and 250 in
+   float32 and float64 (warp, block in shared memory, block on a global
+   copy), singular matrices exactly 0, a row swap an exact negation; NaN
+   input (a NaN column or row for K1 and K3 at (3, 20, 24), K6 at m = 20,
+   40 and 250) answered NaN as the plain versions do, its batch
+   neighbours as alone, and a clean launch after it;
+11. the wide cell: ``det_serve.main`` on 256 requests up to (24, 26),
+   values and then ``--grad-frac 0.25``, both ``--verify``, launches equal
+   to dispatches and the warp kernels launched; then an uncounted pass of
+   the values cell under ``torch.profiler``.
 
 Every check holds ``|got - want| <= 2e-3 * max(1, |want|)`` (the
 reference's tolerance against its oracles), ``want`` from the plain
@@ -84,6 +106,8 @@ PEAK_BYTES = 3.35e12
 # 32-bit integer operations issue at half the float32 rate on Hopper (64
 # INT32 lanes per SM and clock against 128 FP32; architecture white paper)
 PEAK_INT32_OPS = PEAK_F32_FLOPS / 2
+# float64 outside the tensor cores: half the float32 rate (data sheet)
+PEAK_F64_FLOPS = 34e12
 SERVE_ARGS = ["--num", "512", "--max-m", "8", "--max-n", "32",
               "--max-batch", "64"]
 
@@ -188,38 +212,62 @@ def busy_us(events) -> float:
     return busy
 
 
-def device_ms(fn, reps: int = 10) -> float:
-    """Mean device time per call, ms: ``reps`` calls after a warm-up
-    under ``torch.profiler``, the union of the card's kernel, copy and
-    fill intervals over ``reps``.  The host's share of each call (casts,
-    allocations, the ctypes call) is left out."""
+def device_ms(fn, reps: int = 10, windows: int = 3) -> float:
+    """Device time per call, ms: the median over ``windows`` windows of
+    ``reps`` calls under ``torch.profiler`` (after a warm-up) of, for each
+    device event name (kernel, copy or fill), the mean duration of its
+    recorded events times the number of them a call makes.  The host's
+    share of each call (casts, allocations, the ctypes call) is left out.
+    The profiler drops records of the kernels this library launches (6 or
+    8 of 10 kept in most windows, none in a few), so a sum over a window
+    divided by ``reps`` reads low; a mean over the recorded events does
+    not depend on how many were kept, and the median sets aside a window
+    that read wrong all the same (one in about thirty did)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(bool(dev), "the profiler saw no device activity")
-    return busy_us(dev) / reps / 1e3
+    per_call, kept = [], []
+    for _ in range(windows + 3):  # up to three windows without events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        if by_name:
+            per_call.append(sum(-(-len(d) // reps) * sum(d) / len(d)
+                                for d in by_name.values()))
+            kept.append(sum(len(d) for d in by_name.values()))
+            if len(per_call) == windows:
+                break
+    check(bool(per_call), "the profiler saw no device activity")
+    if any(k % reps for k in kept):
+        print(f"device_ms: the profiler kept {kept} device events of "
+              f"{reps} calls a window; means over those", flush=True)
+    return sorted(per_call)[len(per_call) // 2] / 1e3
 
 
 class Errors:
     """Largest absolute and relative error seen per kernel."""
 
     def __init__(self):
-        self.abs = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+        self.abs = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6",
+                                     "K1 wide", "K2 wide", "K3 wide",
+                                     "K4 wide", "K6 wide")}
 
     def hold(self, kernel: str, label: str, got, want,
              tol: float = TOL, track: bool = True) -> None:
         """Check one comparison; ``track=False`` keeps it out of the
         kernel's ``max_abs_err`` (a bf16 result's error is its rounding).
         K3's gradients are held by :func:`grad_rel_err`."""
-        r = grad_rel_err(got, want) if kernel == "K3" else rel_err(got, want)
+        r = grad_rel_err(got, want) if kernel.startswith("K3") \
+            else rel_err(got, want)
         a = abs_err(got, want)
         if track:
             self.abs[kernel] = max(self.abs[kernel], a)
@@ -273,13 +321,19 @@ def phase_device() -> None:
     info = _build.build_info()
     print(f"build: {info['seconds']:.1f} s (built={info['built']}) "
           f"{info['path']}", flush=True)
+    print("build: compile seconds by source: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(info.get("each", {}).items(),
+                                           key=lambda kv: -kv[1])))
     for line in ptxas_summary(info["log"]):
         print("ptxas:", line)
     lib = _build.load()
     print(f"K3 rank tiles for m = 1..16: "
           f"{[lib.radic_grad_tile(m) for m in range(1, 17)]}")
+    print(f"K3 rank tiles for m = 17..33 (warp kernel): "
+          f"{[lib.radic_grad_tile(m) for m in range(17, 34)]}")
     for B, m, n in [(3, 8, 31), (1, 10, 34), (64, 6, 18), (64, 16, 20),
-                    (16, 5, 193), (3, 4, 477), (1, 1, 10 ** 6)]:
+                    (16, 5, 193), (3, 4, 477), (1, 1, 10 ** 6),
+                    (3, 20, 30), (64, 24, 26), (16, 32, 33), (1, 33, 33)]:
         print(f"shared memory per block at ({B},{m},{n}): K1 "
               f"{lib.radic_partial_smem_bytes(B, m, n)} B, K3 "
               f"{lib.radic_grad_smem_bytes(B, m, n)} B")
@@ -519,11 +573,12 @@ def phase_serve(errs: Errors) -> dict:
     return {"launches": launches, "stats": stats}
 
 
-def serve_trace(extra: tuple[str, ...] = ()) -> None:
+def serve_trace(extra: tuple[str, ...] = (),
+                base: list[str] | None = None) -> None:
     """Where the serving time goes: a second, uncounted serving pass
-    (``SERVE_ARGS`` plus ``extra``) under ``torch.profiler``; device busy
-    time is the union of the card's kernel and copy intervals, against
-    the host's wall clock."""
+    (``base``, by default ``SERVE_ARGS``, plus ``extra``) under
+    ``torch.profiler``; device busy time is the union of the card's kernel
+    and copy intervals, against the host's wall clock."""
     import contextlib
     import io
 
@@ -532,11 +587,12 @@ def serve_trace(extra: tuple[str, ...] = ()) -> None:
 
     from repro_torch.launch import det_serve
 
+    args = [*(SERVE_ARGS if base is None else base), *extra]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
-            det_serve.main([*SERVE_ARGS, *extra])
+            det_serve.main(args)
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
@@ -546,13 +602,16 @@ def serve_trace(extra: tuple[str, ...] = ()) -> None:
     busy = busy_us(dev)
     kernels = []
     for label, name in [("K1", "radic_partial_kernel"),
-                        ("K3", "radic_grad_partial_kernel")]:
+                        ("K3", "radic_grad_partial_kernel"),
+                        ("K1 wide", "radic_warp_partial_kernel"),
+                        ("K3 wide", "radic_grad_warp_kernel")]:
         evs = [e for e in dev if name in e.name]
         if evs:
             us = sum(e.time_range.elapsed_us() for e in evs)
             kernels.append(f"{label} kernel {us / 1e3:.3f} ms in "
                            f"{len(evs)} launches")
-    print(f"serve trace{' ' + ' '.join(extra) if extra else ''}: wall "
+    shown = args if base is not None else list(extra)
+    print(f"serve trace{' ' + ' '.join(shown) if shown else ''}: wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({busy / wall_us:.2%}, idle {1 - busy / wall_us:.2%}); "
           f"{'; '.join(kernels)}; {len(dev)} device events")
@@ -830,6 +889,16 @@ def phase_k456(errs: Errors, gen: torch.Generator) -> dict:
     check(torch.equal(combos, want),
           "K5 differs from its plain version on C(24,12)")
     print(f"K5: all {len(qs)} ranks of C(24,12) equal to the plain version")
+    # a table too large to stage in shared memory: the unstaged kernel
+    n, m = 20000, 2
+    qs = torch.randint(0, comb(n, m), (5000,), dtype=torch.int32,
+                       device="cuda", generator=gen)
+    combos = ops.unrank(qs, n, m)
+    check(torch.equal(combos, unrank_plain(qs, n, m,
+                                           rank_table(n, m, device="cuda"))),
+          "K5 differs from its plain version on C(20000,2)")
+    print("K5: 5000 ranks of C(20000,2) (table not staged) equal to the "
+          "plain version")
 
     # K6 at (2048, 8, 8): random, singular (equal rows) and row-permuted
     M = torch.randn(2048, 8, 8, device="cuda", generator=gen)
@@ -854,7 +923,324 @@ def phase_k456(errs: Errors, gen: torch.Generator) -> dict:
           "K6: one row swap must negate the determinant exactly")
     print(f"K6 float64: rel_err={rel_err(got64, want):.3e}; singular rows "
           "give 0, a row swap negates")
+    # m = 12 and 16: the staged tile in float32 and at m = 12 in float64,
+    # the unstaged read where the tile passes the staging budget (m = 16 in
+    # float64)
+    for m in (12, 16):
+        M = well_conditioned(512, m, gen)
+        M[1::4, 5] = M[1::4, 2]
+        M[2::4] = M[0::4][:, swapped_rows(m)]
+        M[3::4, :, 4] = 0
+        want = minor_det_plain(M)
+        for dt, tol in ((torch.float32, 1e-3), (torch.float64, 1e-9)):
+            got = ops.minor_det(M.to(dt))
+            r = rel_to_det(got, want, [0, 2])
+            print(f"K6 (512,{m},{m}) {str(dt)[6:]}: relative err {r:.3e} "
+                  f"(tol {tol:g})")
+            check(r <= tol, f"K6 m={m} {dt}: relative err {r:.3e}")
+            check(not bool(got[1::4].any() | got[3::4].any()),
+                  f"K6 m={m} {dt}: singular matrices must give exactly 0")
+            check(torch.equal(got[2::4], -got[0::4]),
+                  f"K6 m={m} {dt}: a row swap must negate exactly")
     return launches
+
+
+def well_conditioned(B: int, m: int, gen: torch.Generator) -> torch.Tensor:
+    """B float64 matrices Q diag(d): Q orthogonal (the QR of a Gaussian),
+    d in [e^-0.5, e^0.5], so |det| = prod d, the condition number at most
+    e, and partial pivoting still swaps rows."""
+    Q = torch.linalg.qr(torch.randn(B, m, m, device="cuda", generator=gen,
+                                    dtype=torch.float64)).Q
+    d = torch.rand(B, 1, m, device="cuda", generator=gen,
+                   dtype=torch.float64)
+    return Q * torch.exp(d - 0.5)
+
+
+def swapped_rows(m: int) -> torch.Tensor:
+    """The row order of a matrix with rows 0 and 1 exchanged."""
+    swap = torch.arange(m, device="cuda")
+    swap[0], swap[1] = 1, 0
+    return swap
+
+
+def rel_to_det(got: torch.Tensor, want: torch.Tensor, keep) -> float:
+    """max |got - want| / |want| over the matrices whose index mod 4 is
+    in ``keep`` (the non-singular ones of a check's stack)."""
+    idx = torch.arange(want.numel(), device=want.device)
+    sel = (idx % 4 == keep[0]) | (idx % 4 == keep[1])
+    return ((got.double() - want).abs() / want.abs())[sel].max().item()
+
+
+WIDE_SHAPES = [(3, 17, 20), (2, 20, 22), (3, 24, 26), (1, 33, 33),
+               (2, 32, 33)]
+# partial ranges of (3, 20, 30): inside one warp's run of 8 ranks,
+# straddling runs, tiles (64 ranks) and blocks, and its last ranks
+WIDE_RANGES = [(0, 1), (3, 6), (60, 9), (1000, 5000), (123_456, 20_000),
+               (30_045_015 - 3000, 3000)]
+
+
+def phase_wide(errs: Errors, gen: torch.Generator) -> dict:
+    """The warp kernels (m >= 17) against their plain versions in float64
+    on the card, each wrapper's wide launches counted."""
+    from repro_torch.core import radic_det
+    from repro_torch.core.engine import rank_table
+    from repro_torch.core.pascal import comb
+    from repro_torch.kernels import ops, reset_launch_counts
+    from repro_torch.kernels.minor_det import minor_det_cuda, minor_det_plain
+    from repro_torch.kernels.radic_fused import (
+        radic_batched_grad_partial_cuda as k3,
+        radic_batched_grad_partial_plain, radic_batched_partial_bygrid_cuda
+        as k4, radic_batched_partial_cuda as k1, radic_batched_partial_plain,
+        radic_grad_partial_cuda as k3one, radic_partial_cuda as k2)
+
+    def plain64(As, q0, cnt):
+        B, m, n = As.shape
+        return radic_batched_partial_plain(
+            As, rank_table(n, m, device="cuda"), q0, cnt,
+            dtype=torch.float64, chunk=max(1, (1 << 22) // (B * m * m)))
+
+    def grad64(As, cts, q0, cnt):
+        B, m, n = As.shape
+        return radic_batched_grad_partial_plain(
+            As, cts, rank_table(n, m, device="cuda"), q0, cnt,
+            dtype=torch.float64, chunk=max(1, (1 << 20) // (B * m * m)))
+
+    cases = []
+    for B, m, n in WIDE_SHAPES:
+        cases.append((torch.randn(B, m, n, device="cuda", generator=gen), 0,
+                      comb(n, m)))
+    big = torch.randn(3, 20, 30, device="cuda", generator=gen)
+    cases += [(big, q0, cnt) for q0, cnt in WIDE_RANGES]
+
+    # K1 and K4 (the same warp kernel at one matrix per block), K2 at B = 1
+    reset_launch_counts()
+    for As, q0, cnt in cases:
+        B, m, n = As.shape
+        label = f"({B},{m},{n}) ranks [{q0},{q0 + cnt})"
+        got = ops.radic_det_batched_cuda(As, q0, cnt)
+        torch.cuda.synchronize()
+        errs.hold("K1 wide", label, got, plain64(As, q0, cnt))
+        four = ops.radic_det_batched_cuda_bygrid(As, q0, cnt)
+        check(torch.equal(four, got), f"K4 differs from K1 on {label}")
+        errs.abs["K4 wide"] = max(errs.abs["K4 wide"],
+                                  errs.abs["K1 wide"])
+        one = ops.radic_det_cuda(As[B - 1].clone(), q0, cnt)
+        check(torch.equal(one, got[B - 1]),
+              f"K2 differs from K1 at B = 1 on {label}")
+    print("wide K1/K4/K2: K4 == K1 and the B = 1 entry == K1's slot, bit "
+          f"for bit, on {len(cases)} cases")
+    # batch-slot independence and repeats (bit-identical)
+    As = torch.randn(64, 20, 22, device="cuda", generator=gen)
+    first = ops.radic_det_batched_cuda(As)
+    check(torch.equal(first, ops.radic_det_batched_cuda(As)),
+          "wide K1 repeat is not bit-identical")
+    check(torch.equal(ops.radic_det_batched_cuda(As[37:38].clone())[0],
+                      first[37]),
+          "wide K1 slot 37 of 64 differs from the matrix alone")
+    # the scalar path (radic_det -> K2) on a wide matrix
+    A = torch.randn(20, 24, device="cuda", generator=gen)
+    before = k2.wide_launches
+    got = radic_det(A, backend="cuda")
+    check(k2.wide_launches == before + 1, "radic_det did not launch K2 wide")
+    errs.hold("K2 wide", "(20,24) through radic_det", got,
+              plain64(A[None], 0, comb(24, 20))[0])
+    launches = {"K1 wide": k1.wide_launches, "K2 wide": k2.wide_launches,
+                "K4 wide": k4.wide_launches}
+    print(f"wide forward launches: {launches}; slot 37/64 vs alone and "
+          "repeat: bit-identical")
+    check(all(v > 0 for v in launches.values()), "a wide entry did not "
+          "launch its warp kernel")
+
+    # K3 on the same shapes, partial ranges of (3, 20, 30) (fewer ranks:
+    # the float64 pullback is costly), and stacks with a duplicate or a
+    # zero column (exactly zero pivots: the explicit-cofactor branch)
+    gcases = [(As, q0, cnt) for As, q0, cnt in cases if As is not big]
+    gcases += [(big, q0, min(cnt, 2000)) for q0, cnt in WIDE_RANGES]
+    for name, col in [("duplicate column", 1), ("zero column", 5)]:
+        S = torch.randn(3, 20, 24, device="cuda", generator=gen)
+        S[:, :, col] = S[:, :, 0] if col == 1 else 0.0
+        gcases.append((S, 0, comb(24, 20)))
+    for As, q0, cnt in gcases:
+        B, m, n = As.shape
+        cts = torch.randn(B, device="cuda", generator=gen)
+        if B > 1:
+            cts[0] = 0.0
+        label = f"({B},{m},{n}) ranks [{q0},{q0 + cnt})"
+        got = ops.radic_det_batched_grad_cuda(As, cts, q0, cnt)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K3 wide {label}: "
+              "non-finite")
+        errs.hold("K3 wide", label, got, grad64(As, cts, q0, cnt))
+        check(torch.equal(got, ops.radic_det_batched_grad_cuda(As, cts, q0,
+                                                               cnt)),
+              f"K3 wide {label}: a repeat is not bit-identical")
+        if B > 1:
+            check(not bool(got[0].any()), "K3 wide: ct = 0 is not 0")
+        one = ops.radic_det_grad_cuda(As[B - 1].clone(), float(cts[B - 1]),
+                                      q0, cnt)
+        check(torch.equal(one, got[B - 1]),
+              f"K3 wide {label}: the B = 1 entry differs")
+    As = torch.randn(64, 20, 22, device="cuda", generator=gen)
+    cts = torch.randn(64, device="cuda", generator=gen)
+    first = ops.radic_det_batched_grad_cuda(As, cts)
+    check(torch.equal(ops.radic_det_batched_grad_cuda(
+        As[37:38].clone(), cts[37:38].clone())[0], first[37]),
+        "K3 wide slot 37 of 64 differs from the matrix alone")
+    launches["K3 wide"] = k3.wide_launches
+    check(k3.wide_launches > 0 and k3one.wide_launches > 0,
+          "K3's entries did not launch the warp kernel")
+    print("wide K3: repeats, slot 37/64 vs alone and the B = 1 entry "
+          "bit-identical")
+
+    # K6 for every m: the warp kernel (17, 32), the block kernel in shared
+    # memory (33, 64) and on a global copy (250); well-conditioned
+    # matrices (|det| between e^-m/2 and e^m/2, condition at most e), so
+    # float32 is held relative to |det| at every m; singular (equal rows,
+    # a zero column) and row-swapped matrices
+    for m in (17, 32, 33, 64, 250):
+        B = 64 if m <= 64 else 8
+        M = well_conditioned(B, m, gen)
+        M[1::4, 5] = M[1::4, 2]
+        M[2::4] = M[0::4][:, swapped_rows(m)]
+        M[3::4, :, 4] = 0
+        want = minor_det_plain(M)
+        for dt, tol in ((torch.float32, 5e-4), (torch.float64, 1e-9)):
+            got = ops.minor_det(M.to(dt))
+            torch.cuda.synchronize()
+            check(got.dtype == dt, f"K6 m={m}: {got.dtype} out")
+            if dt == torch.float32:
+                errs.hold("K6 wide", f"m={m} float32", got, want, tol=tol)
+                r = rel_to_det(got, want, [0, 2])
+                print(f"K6 wide m={m} float32: relative err {r:.3e} "
+                      "(tol 1e-3)")
+                check(r <= 1e-3, f"K6 m={m} float32 relative {r:.3e}")
+            else:
+                r = rel_to_det(got, want, [0, 2])
+                print(f"K6 wide m={m} float64: relative err {r:.3e} "
+                      f"(tol {tol:g})")
+                check(r <= tol, f"K6 m={m} float64 relative err {r:.3e}")
+            check(not bool(got[1::4].any() | got[3::4].any()),
+                  f"K6 m={m} {dt}: singular matrices must give exactly 0")
+            check(torch.equal(got[2::4], -got[0::4]),
+                  f"K6 m={m} {dt}: a row swap must negate exactly")
+    launches["K6 wide"] = minor_det_cuda.wide_launches
+    check(minor_det_cuda.wide_launches == 10, "K6's wide kernels did not "
+          "launch ten times")
+    print("K6 wide: m = 17, 32, 33, 64, 250 in float32 and float64; "
+          "singular give 0, a row swap negates")
+    phase_wide_nan(errs, gen, plain64, grad64)
+    return launches
+
+
+def phase_wide_nan(errs: Errors, gen: torch.Generator, plain64,
+                   grad64) -> None:
+    """A NaN column on the wide path: the matrix that holds it answers
+    NaN, as det_ge and the plain versions do, its neighbours in the batch
+    answer as alone, and the card still runs the next launch."""
+    from repro_torch.core.pascal import comb
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.minor_det import minor_det_plain
+
+    As = torch.randn(3, 20, 24, device="cuda", generator=gen)
+    As[0, :, 3] = float("nan")
+    As[1, 7, :] = float("nan")  # a NaN row: every minor holds it
+    got = ops.radic_det_batched_cuda(As)
+    alone = ops.radic_det_batched_cuda(As[2:].clone())
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(got[:2]).all()), f"K1 wide: {got[:2].tolist()} "
+          "for the NaN matrices, not NaN")
+    check(torch.equal(got[2], alone[0]), "K1 wide: the clean matrix beside "
+          "NaN ones differs from it alone")
+    errs.hold("K1 wide", "(3,20,24) beside NaN matrices", got[2:],
+              plain64(As[2:], 0, comb(24, 20)))
+    cts = torch.randn(3, device="cuda", generator=gen)
+    g = ops.radic_det_batched_grad_cuda(As, cts)
+    g_alone = ops.radic_det_batched_grad_cuda(As[2:].clone(),
+                                              cts[2:].clone())
+    torch.cuda.synchronize()
+    want = grad64(As, cts, 0, comb(24, 20))
+    check(bool(torch.isnan(g[:2]).any(dim=(1, 2)).all()),
+          "K3 wide: no NaN in the gradient of a NaN matrix")
+    check(torch.equal(torch.isnan(g[:2]), torch.isnan(want[:2])),
+          "K3 wide: the gradient's NaN entries differ from plain's")
+    check(torch.equal(g[2], g_alone[0]), "K3 wide: the clean matrix beside "
+          "NaN ones differs from it alone")
+    errs.hold("K3 wide", "(3,20,24) beside NaN matrices", g[2:], want[2:])
+    # K6: the warp kernel (20), the block kernel in shared memory (40) and
+    # on a global copy (250)
+    for m in (20, 40, 250):
+        M = well_conditioned(5, m, gen)
+        M[0, :, 3] = float("nan")
+        M[1, 0, 0] = float("nan")  # on the first pivot's place
+        M[2, 5, 0] = float("nan")  # below it, never a pivot
+        want = minor_det_plain(M)
+        for dt in (torch.float32, torch.float64):
+            got = ops.minor_det(M.to(dt))
+            torch.cuda.synchronize()
+            check(bool(torch.isnan(got[:3]).all()),
+                  f"K6 m={m} {dt}: {got[:3].tolist()} for NaN input")
+            check(bool(torch.isnan(want[:3]).all()), "K6 plain: not NaN")
+            r = ((got[3:].double() - want[3:]).abs()
+                 / want[3:].abs()).max().item()
+            check(r <= (1e-3 if dt == torch.float32 else 1e-9),
+                  f"K6 m={m} {dt}: relative err {r:.3e} beside NaN input")
+    # the context still launches: a clean call after the NaN ones
+    B = torch.randn(2, 20, 22, device="cuda", generator=gen)
+    check(bool(torch.isfinite(ops.radic_det_batched_cuda(B)).all()),
+          "wide K1 after NaN input: not finite")
+    torch.cuda.synchronize()
+    print("wide NaN input: K1, K3 and K6 (m = 20, 40, 250) answer NaN for "
+          "the NaN matrices, their neighbours as alone; the card still "
+          "launches")
+
+
+WIDE_SERVE_ARGS = ["--num", "256", "--max-m", "24", "--max-n", "26",
+                   "--max-batch", "64"]
+
+
+def phase_wide_serve() -> dict:
+    """The wide cell: 256 requests up to (24, 26) through the async queue,
+    values and then the mixed cell, each verified by ``--verify`` (another
+    code path in float64), launches equal to dispatches."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.radic_fused import (
+        radic_batched_grad_partial_cuda as k3,
+        radic_batched_partial_cuda as k1)
+    from repro_torch.launch import det_serve
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    dets, stats = det_serve.main([*WIDE_SERVE_ARGS, "--verify"])
+    wall = time.perf_counter() - t0
+    print(f"wide serve: dispatches={stats['dispatches']} K1 launches="
+          f"{k1.launches} (warp kernel {k1.wide_launches}), ranks "
+          f"{stats['ranks']}, wall {wall:.3f}s with --verify")
+    check(k1.launches == stats["dispatches"] and k1.wide_launches > 0,
+          "wide serve: K1 launches != dispatches, or no warp launch")
+    check(stats["completed"] == 256 and all(d is not None for d in dets),
+          "wide serving left a request unanswered")
+    out = {"K1 wide": k1.wide_launches, "stats": stats}
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    dets, stats = det_serve.main([*WIDE_SERVE_ARGS, "--grad-frac", "0.25",
+                                  "--verify"])
+    wall = time.perf_counter() - t0
+    grads = stats["grad_dispatches"]
+    values = stats["dispatches"] - grads
+    print(f"wide grad serve: dispatches={stats['dispatches']} (grad "
+          f"{grads}, value {values}), K3 launches={k3.launches} (warp "
+          f"kernel {k3.wide_launches}), K1 launches={k1.launches}, wall "
+          f"{wall:.3f}s with --verify")
+    check(k3.launches == grads > 0 and k3.wide_launches > 0,
+          "wide grad serve: K3 launches != grad dispatches, or no warp "
+          "launch")
+    check(k1.launches == values > 0, "wide grad serve: K1 launches != "
+          "value dispatches")
+    check(stats["completed"] == 256 and all(d is not None for d in dets),
+          "wide gradient serving left a request unanswered")
+    out["K3 wide"] = k3.wide_launches
+    return out
 
 
 def phase_times(gen: torch.Generator, serve: dict, k2_big,
@@ -954,6 +1340,75 @@ def phase_times(gen: torch.Generator, serve: dict, k2_big,
            cuda_ms(lambda: minor_det_plain(M), min_reps=1, min_s=0),
            roofline(B * det_flops(m), 4 * (B * m * m + B)),
            library=lambda: torch.linalg.det(M))
+
+    # the redesigned K5 and K6 at shapes whose bound is far above a
+    # launch: every rank of C(32, 8) (the values cell's largest bucket)
+    # and 2**20 matrices of 8 x 8 in float32 and float64
+    n, m = 32, 8
+    B = comb(n, m)
+    table = rank_table(n, m, backend="cuda", device="cuda")
+    qs = torch.arange(B, dtype=torch.int32, device="cuda")
+    steps = int(ops.unrank(qs, n, m)[:, -1].sum())
+    record("K5 C(32,8)", f"all {B} ranks of ({n},{m})", (B, m, n),
+           lambda: unrank_cuda(qs, n, m, table),
+           cuda_ms(lambda: unrank_plain(qs, n, m, table), min_reps=1,
+                   min_s=0),
+           roofline(2 * steps, 4 * (B + B * m + (n + 1) * (m + 1)),
+                    PEAK_INT32_OPS))
+    del qs
+    B, m = 1 << 20, 8
+    M = torch.randn(B, m, m, device="cuda", generator=gen)
+    for dt, size in ((torch.float32, 4), (torch.float64, 8)):
+        X = M.to(dt)
+        record(f"K6 2^20 {str(dt)[6:]}", f"({B},{m},{m}) {str(dt)[6:]}",
+               (B, m, m), lambda: ops.minor_det(X),
+               cuda_ms(lambda: minor_det_plain(X), min_reps=1, min_s=0),
+               roofline(B * det_flops(m), size * (B * m * m + B),
+                        PEAK_F32_FLOPS if size == 4 else PEAK_F64_FLOPS),
+               library=lambda: torch.linalg.det(X))
+    del M, X
+
+    # the warp kernels (m >= 17) at shapes whose bound is well above a
+    # launch
+    B, m, n = 3, 20, 30
+    total = comb(n, m)
+    As = torch.randn(B, m, n, device="cuda", generator=gen)
+    table = rank_table(n, m, backend="cuda", device="cuda")
+    label = f"({B},{m},{n}) C={total}"
+    plain_ms = cuda_ms(lambda: radic_batched_partial_plain(
+        As, table, 0, total, chunk=1 << 16), min_reps=1, min_s=0)
+    record("K1 wide", label, (B, m, n),
+           lambda: ops.radic_det_batched_cuda(As, table=table),
+           plain_ms, bound_ms(B, m, n, total))
+    record("K4 wide", label, (B, m, n),   # K4's plain version is K1's
+           lambda: ops.radic_det_batched_cuda_bygrid(As, table=table),
+           plain_ms, bound_ms(B, m, n, total))
+    A = As[0].clone()
+    record("K2 wide", f"({m},{n}) C={total} through radic_det", (1, m, n),
+           lambda: radic_det(A, backend="cuda"),
+           cuda_ms(lambda: radic_partial_plain(A, table, 0, total,
+                                               chunk=1 << 18),
+                   min_reps=1, min_s=0),
+           bound_ms(1, m, n, total))
+    B, m, n = 3, 20, 26
+    total = comb(n, m)
+    As = torch.randn(B, m, n, device="cuda", generator=gen)
+    cts = torch.randn(B, device="cuda", generator=gen)
+    table = rank_table(n, m, backend="cuda", device="cuda")
+    record("K3 wide", f"({B},{m},{n}) C={total}", (B, m, n),
+           lambda: ops.radic_det_batched_grad_cuda(As, cts, table=table),
+           cuda_ms(lambda: radic_batched_grad_partial_plain(
+               As, cts, table, 0, total, chunk=1 << 14), min_reps=1,
+               min_s=0),
+           roofline(total * B * grad_flops(m),
+                    4 * (2 * B * m * n + B + (n + 1) * (m + 1))))
+    B, m = 65536, 32
+    M = torch.randn(B, m, m, device="cuda", generator=gen) / m ** 0.5
+    record("K6 wide", f"({B},{m},{m}) float32", (B, m, m),
+           lambda: ops.minor_det(M),
+           cuda_ms(lambda: minor_det_plain(M), min_reps=1, min_s=0),
+           roofline(B * det_flops(m), 4 * (B * m * m + B)),
+           library=lambda: torch.linalg.det(M))
     return times
 
 
@@ -990,6 +1445,11 @@ def main() -> int:
     done("7 gradient serving")
     k456 = phase_k456(errs, gen)
     done("8 K4 K5 K6")
+    wide = phase_wide(errs, gen)
+    done("10 wide kernels")
+    wide_serve = phase_wide_serve()
+    serve_trace(base=WIDE_SERVE_ARGS)
+    done("11 wide serving")
     times = phase_times(gen, serve, k2["big"], autograd["A"])
     done("9 times")
     csrc = "src/repro_torch/kernels/csrc/"
@@ -1009,7 +1469,24 @@ def main() -> int:
             ("unrank_cuda", "K5", "unrank.cu", "unrank_kernel.py:23",
              k456["K5"], "K5"),
             ("minor_det_cuda", "K6", "minor_det.cu", "minor_det.py:23",
-             k456["K6"], "K6")]:
+             k456["K6"], "K6"),
+            ("unrank_cuda", "K5", "unrank.cu", "unrank_kernel.py:23",
+             k456["K5"], "K5 C(32,8)"),
+            ("minor_det_cuda", "K6", "minor_det.cu", "minor_det.py:23",
+             k456["K6"], "K6 2^20 float32"),
+            ("minor_det_cuda", "K6", "minor_det.cu", "minor_det.py:23",
+             k456["K6"], "K6 2^20 float64"),
+            ("radic_batched_partial_cuda", "K1 wide", "radic_warp.cu",
+             "radic_fused.py:156", wide_serve["K1 wide"], "K1 wide"),
+            ("radic_partial_cuda", "K2 wide", "radic_warp.cu",
+             "radic_fused.py:39", wide["K2 wide"], "K2 wide"),
+            ("radic_batched_grad_partial_cuda", "K3 wide",
+             "radic_warp_grad.cuh", "radic_fused.py:201",
+             wide_serve["K3 wide"], "K3 wide"),
+            ("radic_batched_partial_bygrid_cuda", "K4 wide", "radic_warp.cu",
+             "radic_fused.py:92", wide["K4 wide"], "K4 wide"),
+            ("minor_det_cuda", "K6 wide", "minor_det_warp.cu",
+             "minor_det.py:23", wide["K6 wide"], "K6 wide")]:
         t = times[timed]
         check(launches > 0, f"{name} was not launched on its path")
         rows.append({"name": name, "route": "cuda", "source": csrc + source,
@@ -1017,7 +1494,7 @@ def main() -> int:
                      "max_abs_err": errs.abs[kernel], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                     "timed_shape": t["shape"]})
+                     "timed": timed, "timed_shape": t["shape"]})
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -9,8 +9,8 @@ plans once and executes many.
 A plan is keyed by everything that selects a distinct program:
 ``(m, n, batched, capacity, dtype, backend, chunk, kahan, device)``.
 Planning performs *all* validation — ``m > n`` degeneracy, the
-``C(n, m)`` integer-width guards, the kernel's bound on ``m`` — **before**
-any backend dispatch.  The cache is LRU-bounded (``max_plans``); an
+``C(n, m)`` integer-width guards and the Pascal table's — **before** any
+backend dispatch.  The cache is LRU-bounded (``max_plans``); an
 evicted shape re-plans and reproduces bit-identical results.
 
 Every plan carries two executables over the same rank walk: the forward
@@ -55,13 +55,18 @@ from .radic import (_radic_det_batched_flat_impl,
 
 __all__ = ["DetPlan", "DetEngine", "PlanKey", "default_engine",
            "set_default_engine", "stable_key_hash", "validate_rank_space",
-           "rank_table", "plan_statics", "CUDA_MAX_M", "BACKENDS"]
+           "rank_table", "plan_statics", "CUDA_MAX_M", "WARP_MAX_M",
+           "BACKENDS"]
 
 BACKENDS = ("torch", "cuda")
 
-# The CUDA kernel keeps each thread's m×m minor in registers and is
-# compiled for m = 1..CUDA_MAX_M (kernels/csrc/radic_fused.cu).
+# The register kernels keep each thread's m×m minor in registers, for
+# m = 1..CUDA_MAX_M (kernels/csrc/radic_fused.cu, radic_grad.cu); above,
+# one warp owns a minor (radic_warp.cu, radic_warp_grad.cuh), for m up to
+# WARP_MAX_M: the int32 Pascal table's peak C(n, n // 2) passes 2**31 at
+# n = 34, so every m >= 17 the cuda backend plans has n <= 33.
 CUDA_MAX_M = 16
+WARP_MAX_M = 33
 
 
 def dtype_name(dtype) -> str:
@@ -78,8 +83,7 @@ def validate_rank_space(m: int, n: int, *, backend: str = "cuda") -> int:
 
     * ``cuda`` — the kernel computes ranks and reads the table in int32,
       so ``C(n, m) < 2**31`` is a hard requirement (the reference's
-      ``pallas`` guard); the kernel is also compiled only for
-      ``m <= CUDA_MAX_M``.
+      ``pallas`` guard), with no bound on m, as the reference.
     * ``torch`` — int64 ranks (the reference's ``jnp`` backend under x64).
     """
     total = comb(n, m)
@@ -90,10 +94,6 @@ def validate_rank_space(m: int, n: int, *, backend: str = "cuda") -> int:
             raise OverflowError(
                 f"C({n},{m}) = {total} exceeds int32 (the CUDA kernel "
                 "computes ranks in int32); use the torch backend.")
-        if m > CUDA_MAX_M:
-            raise ValueError(
-                f"m = {m} exceeds the CUDA kernel's bound m <= "
-                f"{CUDA_MAX_M}; use the torch backend.")
     elif total > INT64_MAX:
         raise OverflowError(f"C({n},{m}) = {total} exceeds int64.")
     return total

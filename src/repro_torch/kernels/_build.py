@@ -60,9 +60,10 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(out: Path) -> str:
+def _compile(out: Path) -> tuple[str, dict[str, float]]:
     """Compile every source to an object in parallel, then link them into
-    ``out``; returns the compilers' combined output."""
+    ``out``; returns the compilers' combined output and each source's
+    compile seconds."""
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     nvcc = _nvcc()
@@ -70,15 +71,27 @@ def _compile(out: Path) -> str:
             for p in _sources()]
     jobs = [([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)], o)
             for p, o in zip(_sources(), objs)]
+    t0 = time.perf_counter()
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
              for cmd, _ in jobs]
+    texts, seconds = {}, {}
+
+    def finish(i, proc):  # one thread per compiler: each one's own time
+        texts[i] = proc.communicate()[0]
+        seconds[_sources()[i].name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=finish, args=(i, proc))
+               for i, (_, proc) in enumerate(procs)]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     logs, failed = [], None
-    for cmd, proc in procs:
-        text = proc.communicate()[0]
-        logs.append(text)
+    for i, (cmd, proc) in enumerate(procs):
+        logs.append(texts[i])
         if proc.returncode != 0 and failed is None:
-            failed = (cmd, proc.returncode, text)
+            failed = (cmd, proc.returncode, texts[i])
     try:
         if failed is None:
             cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
@@ -95,7 +108,7 @@ def _compile(out: Path) -> str:
         cmd, rc, text = failed
         raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return "".join(logs)
+    return "".join(logs), seconds
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -117,8 +130,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.radic_grad_smem_bytes.restype = i32
     lib.radic_unrank.argtypes = [vp, i32, i32, i32, vp, vp, i32, vp]
     lib.radic_unrank.restype = i32
-    lib.radic_minor_det.argtypes = [vp, i32, i32, i32, vp, i32, vp]
+    lib.radic_minor_det.argtypes = [vp, i32, i32, i32, vp, i32, vp, vp]
     lib.radic_minor_det.restype = i32
+    lib.radic_minor_det_work_elems.argtypes = [i32, i32, i32]
+    lib.radic_minor_det_work_elems.restype = i64
     lib.radic_error_string.argtypes = [i32]
     lib.radic_error_string.restype = ctypes.c_char_p
     return lib
@@ -132,14 +147,16 @@ def load() -> ctypes.CDLL:
             out = BUILD_DIR / f"libradic_{_digest()}.so"
             t0 = time.perf_counter()
             built = not out.exists()
-            log = _compile(out) if built else ""
+            log, each = _compile(out) if built else ("", {})
             _info.update(path=str(out), seconds=time.perf_counter() - t0,
-                         log=log, built=built)
+                         log=log, built=built, each=each)
             _lib = _bind(ctypes.CDLL(str(out)))
         return _lib
 
 
 def build_info() -> dict:
-    """Path, build seconds and compiler log of the loaded library."""
+    """Path, build seconds (``each``: per source, from the start of the
+    parallel compile to its end), and compiler log of the loaded
+    library."""
     with _lock:
         return dict(_info)

@@ -2,9 +2,11 @@
 rule and the CUDA error code a launch returns.
 
 Every wrapper that launches a kernel is registered with :func:`counted`,
-which gives it a ``launches`` attribute; :func:`count` adds one where the
-kernel is launched and nowhere else, and :func:`reset_launch_counts` sets
-every registered count to 0."""
+which gives it a ``launches`` attribute and a ``wide_launches`` one;
+:func:`count` adds one to the first where the kernel is launched and
+nowhere else, and to the second too where that launch went to a kernel of
+the wide path (m >= 17: the warp kernels, and K6's block kernel), and
+:func:`reset_launch_counts` sets every registered count to 0."""
 
 from __future__ import annotations
 
@@ -22,14 +24,16 @@ _wrappers: list = []
 def counted(wrapper):
     """Register a wrapper's launch count (a decorator)."""
     wrapper.launches = 0
+    wrapper.wide_launches = 0
     with _lock:
         _wrappers.append(wrapper)
     return wrapper
 
 
-def count(wrapper) -> None:
+def count(wrapper, wide: bool = False) -> None:
     with _lock:
         wrapper.launches += 1
+        wrapper.wide_launches += int(wide)
 
 
 def reset_launch_counts() -> None:
@@ -37,6 +41,7 @@ def reset_launch_counts() -> None:
     with _lock:
         for wrapper in _wrappers:
             wrapper.launches = 0
+            wrapper.wide_launches = 0
 
 
 def require_cuda(t: torch.Tensor) -> None:

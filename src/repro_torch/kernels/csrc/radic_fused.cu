@@ -33,6 +33,9 @@
 //     staging -- so a matrix's result is bit-identical alone or inside any
 //     batch, and between the B = 1 (K2) and batched (K1) entries.
 //
+// m = 17..33 take the warp kernel of radic_warp.cu through the same
+// entries (walk_and_reduce), with the same reduction.
+//
 // The same kernel is K4, the by-grid twin: replaces radic_fused.py:92
 // radic_batched_kernel, whose (B, tiles) grid unranks every tile again
 // for each matrix.  K4 launches it with one matrix per block on a (G, B)
@@ -42,6 +45,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "warp.cuh"
 
 namespace radic {
 
@@ -188,12 +192,17 @@ cudaError_t launch_walk_any(int m, int grid, int chunk, cudaStream_t s,
 int walk_and_reduce(int chunk, const float* As, int B, int m, int n,
                     const int* table, int q_start, long long count,
                     float* partials, int grid, float* out, void* stream) {
-  if (B < 1 || m < 1 || m > kMaxM || n < m || grid < 1 || count < 0 ||
+  if (B < 1 || m < 1 || m > kWarpMaxM || n < m || grid < 1 || count < 0 ||
       (B + chunk - 1) / chunk > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = launch_walk_any(m, grid, chunk, s, As, B, n, table,
-                                        q_start, count, partials);
+  // m <= 16: the register kernel above; 17..33: the warp kernel
+  // (radic_warp.cu)
+  const cudaError_t e =
+      m > kMaxM ? launch_warp_walk(m, grid, chunk, s, As, B, n, table,
+                                   q_start, count, partials)
+                : launch_walk_any(m, grid, chunk, s, As, B, n, table,
+                                  q_start, count, partials);
   if (e != cudaSuccess) return static_cast<int>(e);
   reduce_partials_kernel<<<(B + 255) / 256, 256, 0, s>>>(partials, grid, B,
                                                           out);
@@ -226,10 +235,12 @@ int radic_bygrid_partial(const float* As, int B, int m, int n,
 }
 
 // Shared memory per block of K1 (static and dynamic) for a stack
-// (B, m, n), in bytes; 0 outside 1 <= m <= kMaxM.
+// (B, m, n), in bytes, on the register path (m <= kMaxM) or the warp
+// path (m <= kWarpMaxM); 0 outside them.
 int radic_partial_smem_bytes(int B, int m, int n) {
   using namespace radic;
-  if (B < 1 || m < 1 || m > kMaxM || n < m) return 0;
+  if (B < 1 || m < 1 || m > kWarpMaxM || n < m) return 0;
+  if (m > kMaxM) return warp_partial_smem_bytes(B, m, n);
   const int fixed = 4 * (m * kTile + kBatchChunk * kTile);
   return fixed + (staged(m, n) ? stage_bytes(m, n, min(kBatchChunk, B)) : 0);
 }

@@ -60,9 +60,12 @@
 //   * m >= 14 spills registers (the LU keeps an m x m array); accepted.
 // The kernel lives in radic_grad.cuh; m = 14..16 are instantiated in
 // radic_grad_wide.cu, so that nvcc compiles the two halves in parallel.
+// m = 17..33 go to the warp kernel (radic_warp_grad.cuh): one warp per
+// (rank, matrix), since a thread cannot hold an m x m minor there.
 #include <cuda_runtime.h>
 
 #include "radic_grad.cuh"
+#include "warp.cuh"
 
 namespace radic {
 
@@ -84,9 +87,12 @@ __global__ void reduce_grad_partials_kernel(const float* __restrict__ partials,
 
 extern "C" {
 
-// Ranks per tile of the gradient kernel for m (0 outside 1..kMaxM).
+// Ranks per tile of the gradient kernel for m: the register kernel's
+// for m <= kMaxM, the warp kernel's (radic_warp_grad.cuh) for m up to
+// kWarpMaxM; 0 outside 1..kWarpMaxM.
 int radic_grad_tile(int m) {
   using namespace radic;
+  if (m > kMaxM) return warp_grad_tile_of(m);
   switch (m) {
 #define GRAD_TILE_CASE(MM) \
   case MM:                 \
@@ -102,11 +108,13 @@ int radic_grad_tile(int m) {
 }
 
 // Shared memory per block of the gradient kernel (static and dynamic)
-// for a stack (B, m, n), in bytes; 0 outside 1 <= m <= kMaxM.
+// for a stack (B, m, n), in bytes, on the register or the warp path; 0
+// outside 1 <= m <= kWarpMaxM.
 int radic_grad_smem_bytes(int B, int m, int n) {
   using namespace radic;
   const int T = radic_grad_tile(m);
   if (T == 0 || B < 1 || n < m) return 0;
+  if (m > kMaxM) return warp_grad_smem_bytes(m);
   return 4 * (grad_smem_words(T, m, n) + T / 32);
 }
 
@@ -119,7 +127,7 @@ int radic_batched_grad_partial(const float* As, const float* cts, int B,
                                long long count, float* partials, int grid,
                                float* out, void* stream) {
   using namespace radic;
-  if (B < 1 || m < 1 || m > kMaxM || n < m || grid < 1 || count < 0)
+  if (B < 1 || m < 1 || m > kWarpMaxM || n < m || grid < 1 || count < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
@@ -133,8 +141,14 @@ int radic_batched_grad_partial(const float* As, const float* cts, int B,
     GRAD_CASE(6) GRAD_CASE(7) GRAD_CASE(8) GRAD_CASE(9) GRAD_CASE(10)
     GRAD_CASE(11) GRAD_CASE(12) GRAD_CASE(13)
 #undef GRAD_CASE
-    default:
+    case 14:
+    case 15:
+    case 16:
       e = launch_grad_wide(m, grid, B, s, As, cts, n, table, q_start, count,
+                           partials);
+      break;
+    default:  // 17..kWarpMaxM: one warp per (rank, matrix)
+      e = launch_grad_warp(m, grid, B, s, As, cts, n, table, q_start, count,
                            partials);
   }
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -2,16 +2,22 @@
 
 Each experiment names variants of the kernel sources in ``csrc/``, each a
 set of text edits (a choice switched off or changed), and the shapes at
-which K1 (``radic_batched_partial``) or K3 (``radic_batched_grad_partial``)
-is timed.  The checkout's sources (``cur``) and every variant are compiled
+which K1 (``radic_batched_partial``), K4 (``radic_bygrid_partial``), K3
+(``radic_batched_grad_partial``), K5 (``radic_unrank``) or K6
+(``radic_minor_det``, float32; ``K6d``: float64) is timed.  ``--baseline DIR`` adds one more variant, ``base``:
+the sources of another checkout's ``csrc`` directory as they are (the
+parent commit's, to time a redesigned kernel against its old self in one
+call).  The checkout's sources (``cur``) and every variant are compiled
 in parallel into ``build/kernel_ab/``, loaded side by side, and timed on
 the same inputs in alternating order (cur, variants, reversed, ...), each
 time a CUDA-event window over back-to-back calls: the calls run for
-milliseconds, so the window holds device time.  Every variant's result
-must equal ``cur``'s bit for bit (no choice here moves arithmetic), and
+milliseconds, so the window holds device time (K5 and K6, whose small
+shapes run for microseconds, are also timed by the profiler).  Every
+variant's result must equal ``cur``'s bit for bit (no choice here moves
+arithmetic; ``diag_`` variants, which take a phase out, are exempt), and
 ptxas's registers and spills are printed for the kernels timed.
 
-    python -m repro_torch.kernels.kernel_ab [EXPERIMENT ...]
+    python -m repro_torch.kernels.kernel_ab [--baseline DIR] [EXPERIMENT ...]
 
 (``PYTHONPATH=src``, from the root of a checkout, on a machine with a
 card and ``nvcc``).  The last line of its output is one JSON object with
@@ -39,6 +45,34 @@ from repro_torch.kernels import radic_fused as rf
 OUT = _build.BUILD_DIR.parent / "kernel_ab"
 FUSED = "radic_fused.cu"
 
+# K5's walk and store (csrc/unrank.cu), and the diagnostics that take
+# each out
+K5_WALK = """    int pos = 0;
+    for (int v = 1; v <= n && pos < m; ++v) {
+      const int cnt = Staged ? tab[(n - v) * (m + 1) + (m - 1 - pos)]
+                             : __ldg(&tab[(n - v) * (m + 1) + (m - 1 - pos)]);
+      if (q < cnt) {
+        row[pos] = v;
+        ++pos;
+      } else {
+        q -= cnt;
+      }
+    }"""
+K5_NO_WALK = """    int pos = 0;
+    for (; pos < m; ++pos) row[pos] = q + pos;"""
+K5_STORE = "      dst[e] = buf[t * stride + p];"
+K5_NO_STORE = "      if (buf[t * stride + p] == -7) dst[e] = 0;"
+# K6's staging budget (csrc/minor_det.cu), and the K6 shapes timed: large
+# stacks at m = 8, 12 and 16 in float32 (K6) and float64 (K6d), and the
+# launch-bound (2048, 8, 8)
+K6_BUDGET = "constexpr int kDetStageBytes = 232448;"
+K6_SHAPES = [("K6", 1 << 20, 8, 8), ("K6d", 1 << 20, 8, 8),
+             ("K6", 1 << 19, 12, 12), ("K6d", 1 << 19, 12, 12),
+             ("K6", 1 << 18, 16, 16), ("K6d", 1 << 18, 16, 16),
+             ("K6", 2048, 8, 8)]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
+
+
 # name -> (variants {name: [(file, old, new), ...]}, shapes [(kernel, B, m, n)])
 EXPERIMENTS = {
     # K1's batch slice of A and Pascal table staged in shared memory
@@ -55,6 +89,44 @@ EXPERIMENTS = {
     }, [("K1", 1, 9, 34), ("K1", 1, 10, 34), ("K1", 1, 11, 30),
         ("K1", 3, 9, 30), ("K1", 3, 10, 28), ("K1", 3, 11, 26),
         ("K1", 1, 12, 30), ("K1", 1, 16, 26)]),
+    # diagnostics, not designs (their output differs by construction): K5
+    # without its walk, and without its stores, to see which phase holds
+    # it back
+    "k5_diag": ({
+        "diag_no_walk": [("unrank.cu", K5_WALK, K5_NO_WALK)],
+        "diag_no_store": [("unrank.cu", K5_STORE, K5_NO_STORE)],
+    }, [("K5", 10_518_300, 8, 32)]),
+    # the register kernels at the shapes chip_smoke.py times: K1, K4 and
+    # K3 at (3, 8, 31), K1 at B = 1 (K2's kernel) at (1, 10, 34); no
+    # variants of their own (with --baseline, against the baseline's)
+    "k1_k3": ({}, [("K1", 3, 8, 31), ("K4", 3, 8, 31), ("K3", 3, 8, 31),
+                   ("K1", 1, 10, 34)]),
+    # K5 on every rank of C(32, 8) and on 4,096 ranks of (24, 12) (B, m,
+    # n), K6 on 2**20 and on 2,048 matrices of 8 x 8 and at m = 12 and 16
+    # (B, m, m): no variants of their own; with --baseline, against the
+    # baseline's kernels (also timed by the profiler, for the small shapes'
+    # sake)
+    "k5_k6": ({}, [("K5", 10_518_300, 8, 32), *K6_SHAPES,
+                   ("K5", 4096, 12, 24)]),
+    # the warp kernels (m >= 17) at the shapes chip_smoke.py times: K1 at
+    # (3, 20, 30), K3 at (3, 20, 26), K6 at (65536, 32, 32) in float32 and
+    # float64; no variants of their own (with --baseline, against the
+    # baseline's)
+    "wide": ({}, [("K1", 3, 20, 30), ("K3", 3, 20, 26),
+                  ("K6", 65536, 32, 32), ("K6d", 65536, 32, 32)]),
+    # K6's staged tile at m <= 16 (the wrapper's 128 matrices at a stride
+    # of m^2 + 1, in up to 227 KB of shared memory) against a 100 KB and a
+    # 48 KB budget and against no staging (each thread reading its matrix
+    # from global memory with stride m^2, the kernel's design before it
+    # staged): a tile over the budget is read unstaged
+    "k6_stage": ({
+        "stage100k": [("minor_det.cu", K6_BUDGET,
+                       "constexpr int kDetStageBytes = 102400;")],
+        "stage48k": [("minor_det.cu", K6_BUDGET,
+                      "constexpr int kDetStageBytes = 49152;")],
+        "unstaged": [("minor_det.cu", K6_BUDGET,
+                      "constexpr int kDetStageBytes = 0;")],
+    }, K6_SHAPES),
 }
 
 
@@ -62,17 +134,22 @@ def _includes(src: Path) -> set[str]:
     return set(re.findall(r'#include "([^"]+)"', src.read_text()))
 
 
-def _build_all(variants: dict[str, list]) -> tuple[dict, dict]:
+def _build_all(variants: dict[str, list],
+               baseline: Path | None = None) -> tuple[dict, dict]:
     """Compile ``cur`` and each variant (only the sources its edits reach;
-    the rest reuse ``cur``'s objects), link and bind each library; returns
-    the libraries and ptxas's registers and spills of each, by name."""
+    the rest reuse ``cur``'s objects), and ``base``, every source of
+    ``baseline``, where given; link and bind each library; returns the
+    libraries and ptxas's registers and spills of each, by name."""
     nvcc = _build._nvcc()
     shutil.rmtree(OUT, ignore_errors=True)
     srcs = sorted(_build.CSRC.glob("*.cu"))
+    every = {"cur": [], **variants}
+    if baseline is not None:
+        every["base"] = []
     jobs = {}
-    for name, edits in {"cur": [], **variants}.items():
+    for name, edits in every.items():
         d = OUT / name
-        shutil.copytree(_build.CSRC, d)
+        shutil.copytree(baseline if name == "base" else _build.CSRC, d)
         touched = set()
         for fn, old, new in edits:
             text = (d / fn).read_text()
@@ -81,8 +158,8 @@ def _build_all(variants: dict[str, list]) -> tuple[dict, dict]:
                                  "the experiment no longer fits the sources")
             (d / fn).write_text(text.replace(old, new))
             touched.add(fn)
-        for s in srcs:
-            if name == "cur" or s.name in touched or \
+        for s in (sorted(d.glob("*.cu")) if name == "base" else srcs):
+            if name in ("cur", "base") or s.name in touched or \
                     _includes(s) & touched or \
                     any(_includes(_build.CSRC / h) & touched
                         for h in _includes(s) if (_build.CSRC / h).exists()):
@@ -98,10 +175,11 @@ def _build_all(variants: dict[str, list]) -> tuple[dict, dict]:
             raise SystemExit(f"nvcc failed on {name}/{src}:\n{text[-4000:]}")
         logs[name] = logs.get(name, "") + text
     libs, ptxas = {}, {}
-    for name in {"cur": [], **variants}:
+    for name in every:
         d = OUT / name
         objs = [str((d if (d / f"{s.name}.o").exists() else OUT / "cur")
-                    / f"{s.name}.o") for s in srcs]
+                    / f"{s.name}.o")
+                for s in (sorted(d.glob("*.cu")) if name == "base" else srcs)]
         subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                         "-shared", "-o", str(d / "lib.so"), *objs],
                        check=True)
@@ -134,13 +212,15 @@ def _call(lib, kernel: str, As, cts, table, count: int):
     """A closure launching one call of `kernel`, and its output."""
     B, m, n = As.shape
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    if kernel == "K1":
-        G = rf.grid_blocks(count)
+    if kernel in ("K1", "K4"):
+        G = (rf.grid_blocks(count) if m <= rf.CUDA_MAX_M
+             else rf.warp_grid_blocks(count))
         part = torch.empty((G, B), device="cuda")
         out = torch.empty((B,), device="cuda")
         args = (As.data_ptr(), B, m, n, table.data_ptr(), 0, count,
                 part.data_ptr(), G, out.data_ptr(), stream)
-        fn = lib.radic_batched_partial
+        fn = (lib.radic_batched_partial if kernel == "K1"
+              else lib.radic_bygrid_partial)
     else:
         G = rf.grad_grid_blocks(count, m, n, lib.radic_grad_tile(m))
         part = torch.empty((G, B, m, n), device="cuda")
@@ -154,6 +234,65 @@ def _call(lib, kernel: str, As, cts, table, count: int):
         if rc:
             raise RuntimeError(lib.radic_error_string(rc).decode())
     return run, out
+
+
+def _inputs(kernel: str, B: int, m: int, n: int, gen: torch.Generator):
+    """K5: ranks (all of C(n, m) where B is that, else B random ones) and
+    the table; K6 and K6d: B random m x m matrices."""
+    if kernel == "K5":
+        total = comb(n, m)
+        qs = (torch.arange(total, dtype=torch.int32, device="cuda")
+              if B == total else
+              torch.randint(0, total, (B,), dtype=torch.int32,
+                            device="cuda", generator=gen))
+        table = torch.as_tensor(binom_table(n, m, dtype=np.int32)).cuda()
+        return qs, table
+    dt = torch.float64 if kernel == "K6d" else torch.float32
+    return torch.randn(B, m, m, device="cuda", generator=gen, dtype=dt)
+
+
+def _call_small(lib, kernel: str, x, m: int, n: int):
+    """A closure launching one call of K5 or K6 on ``x``, and its output;
+    ``block`` is the wrappers' default."""
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if kernel == "K5":
+        qs, table = x
+        out = torch.empty((qs.numel(), m), dtype=torch.int32, device="cuda")
+        args = (qs.data_ptr(), qs.numel(), n, m, table.data_ptr(),
+                out.data_ptr(), 256, stream)
+        fn = lib.radic_unrank
+    else:
+        B = x.shape[0]
+        out = torch.empty((B,), dtype=x.dtype, device="cuda")
+        # no work buffer at m <= 16
+        args = (x.data_ptr(), B, m, int(x.dtype == torch.float64),
+                out.data_ptr(), 128, None, stream)
+        fn = lib.radic_minor_det
+
+    def run():
+        rc = fn(*args)
+        if rc:
+            raise RuntimeError(lib.radic_error_string(rc).decode())
+    return run, out
+
+
+def _profiled_ms(run, reps: int = 50) -> float | None:
+    """Device time per call from ``torch.profiler``: the kernel intervals
+    of ``reps`` calls over ``reps`` (the launch-bound event window says
+    little of a kernel of a few microseconds).  None where the profiler
+    lost a record (an event name seen other than ``reps`` times)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = {e.name for e in dev}
+    if not dev or any(sum(e.name == k for e in dev) != reps for k in names):
+        return None
+    return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
 
 
 def _window_ms(run, reps: int) -> float:
@@ -171,6 +310,9 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
+    baseline = None
+    if argv[:1] == ["--baseline"]:
+        baseline, argv = Path(argv[1]).resolve(), argv[2:]
     names = argv or list(EXPERIMENTS)
     unknown = set(names) - set(EXPERIMENTS)
     if unknown:
@@ -181,7 +323,7 @@ def main(argv: list[str]) -> int:
     for e in names:
         for v, edits in EXPERIMENTS[e][0].items():
             variants[f"{e}.{v}"] = edits
-    libs, ptxas = _build_all(variants)
+    libs, ptxas = _build_all(variants, baseline)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -190,13 +332,19 @@ def main(argv: list[str]) -> int:
     result, ok = {"card": card.strip(), "rounds": 4, "times": []}, True
     for e in names:
         for kernel, B, m, n in EXPERIMENTS[e][1]:
-            order = ["cur", *(f"{e}.{v}" for v in EXPERIMENTS[e][0])]
-            As = torch.randn(B, m, n, device="cuda", generator=gen)
-            cts = torch.randn(B, device="cuda", generator=gen)
-            table = torch.as_tensor(binom_table(n, m, dtype=np.int32)).cuda()
-            count = comb(n, m)
-            calls = {v: _call(libs[v], kernel, As, cts, table, count)
-                     for v in order}
+            order = ["cur", *(f"{e}.{v}" for v in EXPERIMENTS[e][0]),
+                     *(["base"] if baseline is not None else [])]
+            if kernel in ("K1", "K3", "K4"):
+                As = torch.randn(B, m, n, device="cuda", generator=gen)
+                cts = torch.randn(B, device="cuda", generator=gen)
+                table = torch.as_tensor(
+                    binom_table(n, m, dtype=np.int32)).cuda()
+                calls = {v: _call(libs[v], kernel, As, cts, table,
+                                  comb(n, m)) for v in order}
+            else:
+                x = _inputs(kernel, B, m, n, gen)
+                calls = {v: _call_small(libs[v], kernel, x, m, n)
+                         for v in order}
             for v in list(order):
                 try:
                     calls[v][0]()
@@ -208,25 +356,40 @@ def main(argv: list[str]) -> int:
                     ok = False
             reps = max(3, math.ceil(150.0 / _window_ms(calls["cur"][0], 1)))
             ms = {v: [] for v in order}
+            prof = {v: [] for v in order}
             for rnd in range(result["rounds"]):
                 for v in (order if rnd % 2 == 0 else order[::-1]):
                     ms[v].append(_window_ms(calls[v][0], reps))
+                    if kernel in ("K5", "K6", "K6d"):
+                        prof[v].append(_profiled_ms(calls[v][0]))
             want = calls["cur"][1]
+            bound = ""
+            if kernel in ("K6", "K6d"):
+                # each matrix read once, each determinant written once
+                nbytes = B * (m * m + 1) * (8 if kernel == "K6d" else 4)
+                bound = (f"; bytes bound "
+                         f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
             for v in order:
                 got = calls[v][1]
                 same = bool(torch.equal(got, want))
-                ok &= same
+                ok &= same or v.split(".")[-1].startswith("diag_")
                 key = f"K{kernel[1]}<{m}"
                 regs = "; ".join(f"{k} {s}" for k, s in
                                  ptxas[v].items() if k.startswith(key))
+                profiled = "".join(
+                    " lost" if t is None else f" {t:.5f}" for t in prof[v])
                 print(f"{e} {kernel} ({B}, {m}, {n}) {v}: mean "
                       f"{sum(ms[v]) / len(ms[v]):.4f} ms, rounds "
                       f"{' '.join(f'{t:.4f}' for t in ms[v])}, "
-                      f"{'same bits' if same else 'BITS DIFFER'}; {regs}",
+                      + (f"profiled device ms{profiled}, " if prof[v]
+                         else "")
+                      + f"{'same bits' if same else 'BITS DIFFER'}; {regs}"
+                      + bound,
                       flush=True)
                 result["times"].append(dict(
                     experiment=e, kernel=kernel, shape=[B, m, n], variant=v,
-                    ms=ms[v], reps=reps, same_bits=same, ptxas=regs))
+                    ms=ms[v], profiled_ms=prof[v], reps=reps,
+                    same_bits=same, ptxas=regs))
     print(json.dumps(result))
     return 0 if ok else 1
 

@@ -7,9 +7,11 @@ the Pallas kernel ``minor_det_kernel`` (minor_det.py:23, wrapper
 elimination with partial pivoting (strict ``>`` pivot rule; a zero pivot
 gives det 0) (``csrc/minor_det.cu``).  The reference computes in the
 input dtype; here float64 computes in float64 and every other dtype in
-float32, cast back to the input dtype.  m <= 16 (the matrix lives in a
-thread's registers).  For a CPU tensor the wrapper runs its plain
-version; for a CUDA tensor it launches the kernel or raises.
+float32, cast back to the input dtype.  Every m: one thread per matrix
+at m ≤ 16, one warp at 17 ≤ m ≤ 32, one block above (on a global copy
+where the matrix does not fit in shared memory).  For a CPU tensor the
+wrapper runs its plain version; for a CUDA tensor it launches the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -54,16 +56,14 @@ def minor_det_plain(mats: torch.Tensor) -> torch.Tensor:
 @counted
 def minor_det_cuda(mats: torch.Tensor, *, block: int = 128) -> torch.Tensor:
     """Determinants of ``mats (B, m, m)`` → ``(B,)`` in ``mats.dtype``
-    (K6); ``block`` matrices per block (the reference's tile)."""
+    (K6); ``block`` matrices per block at m ≤ 16 (the reference's
+    tile), staged in shared memory where they fit."""
     if mats.device.type == "cpu":
         return minor_det_plain(mats)
     require_cuda(mats)
     B, m, m2 = mats.shape
     if m != m2:
         raise ValueError(f"expected (B, m, m), got {tuple(mats.shape)}")
-    if m > CUDA_MAX_M:
-        raise ValueError(f"the CUDA kernel is built for m <= {CUDA_MAX_M}, "
-                         f"got m = {m}")
     if B == 0 or m == 0:
         return torch.ones((B,), dtype=mats.dtype, device=mats.device)
     from . import _build  # lazy: builds the library at first launch
@@ -71,10 +71,16 @@ def minor_det_cuda(mats: torch.Tensor, *, block: int = 128) -> torch.Tensor:
     X = mats.to(cdt).contiguous()
     out = torch.empty((B,), dtype=cdt, device=mats.device)
     lib = _build.load()
+    is_double = int(cdt == torch.float64)
+    # the m > 32 kernel's global copy, where a matrix passes shared memory
+    work = torch.empty((lib.radic_minor_det_work_elems(B, m, is_double),),
+                       dtype=cdt, device=mats.device)
     with torch.cuda.device(mats.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.radic_minor_det(X.data_ptr(), B, m, int(cdt == torch.float64),
-                                 out.data_ptr(), int(block), stream)
+        rc = lib.radic_minor_det(X.data_ptr(), B, m, is_double,
+                                 out.data_ptr(), int(block),
+                                 work.data_ptr() if work.numel() else None,
+                                 stream)
     check_rc(lib, rc, "minor_det")
-    count_launch(minor_det_cuda)
+    count_launch(minor_det_cuda, wide=m > CUDA_MAX_M)
     return out.to(mats.dtype)

@@ -3,21 +3,22 @@ dispatch.
 
 Port of ``repro/kernels/ops.py``, in the reference's order (ops.py:42-143):
 ``m > n`` returns zeros; then :func:`validate_rank_space` for the
-``cuda`` backend (int32 ranks, ``m <= 16``); then a rank range past
-``C(n, m)`` raises ``ValueError``; then (gradients) the cotangents are
-reshaped to ``(B,)`` in the input dtype; then the kernel wrapper runs.
-``unrank`` checks only the int32 width (its kernel has no bound on m) and
-``minor_det`` only its kernel's ``m <= 16``.  The wrappers launch the CUDA
-kernel for a CUDA tensor and run its plain torch version for a CPU
-tensor.
+``cuda`` backend (int32 ranks); then a rank range past ``C(n, m)`` raises
+``ValueError``; then the int32 Pascal table is built, whose peak entry
+raises ``OverflowError`` past int32 (at (33, 34), say); then (gradients)
+the cotangents are reshaped to ``(B,)`` in the input dtype; then the
+kernel wrapper runs.  No entry bounds m, as in the reference: the
+wrappers take m ≤ 16 to the register kernels and larger m to the warp
+kernels.  ``unrank`` checks only the int32 width and ``minor_det``
+nothing.  The wrappers launch the CUDA kernel for a CUDA tensor and run
+its plain torch version for a CPU tensor.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.engine import (CUDA_MAX_M, rank_table,
-                                     validate_rank_space)
+from repro_torch.core.engine import rank_table, validate_rank_space
 from repro_torch.core.pascal import INT32_MAX, comb
 
 from .minor_det import minor_det_cuda
@@ -49,12 +50,8 @@ def _tensor(A) -> torch.Tensor:
 
 def minor_det(mats: torch.Tensor, *, tile: int = 128) -> torch.Tensor:
     """Batched determinant of ``(B, m, m)`` minors through the K6 entry
-    (``tile`` matrices per block).  The kernel's bound ``m <= 16`` holds
-    on every device, as the ``cuda`` backend's does."""
+    (``tile`` matrices per block at m ≤ 16), for every m."""
     mats = _tensor(mats)
-    if mats.shape[-1] > CUDA_MAX_M:
-        raise ValueError(f"m = {mats.shape[-1]} exceeds the CUDA kernel's "
-                         f"bound m <= {CUDA_MAX_M}")
     return minor_det_cuda(mats, block=tile)
 
 

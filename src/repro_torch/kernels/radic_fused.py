@@ -13,18 +13,23 @@ Port of ``repro/kernels/radic_fused.py``, all four of its Pallas kernels:
   one matrix ``A (m, n)`` → a scalar.  It launches the same CUDA kernel at
   B = 1 and keeps its own launch count.
 
-The kernel (``csrc/radic_fused.cu``) computes in float32 whatever the
-input dtype and the wrapper casts the result back.  A wrapper given a
-tensor on the CPU runs its plain version (``*_plain``); given a CUDA
-tensor it launches the kernel or raises — it never falls back.  Every
-launch adds one to the wrapper's ``launches`` attribute.
+The kernels compute in float32 whatever the input dtype and the wrapper
+casts the result back.  Each entry takes m ≤ 16 to the register kernels
+(``csrc/radic_fused.cu``, ``csrc/radic_grad.cu``: one thread owns a
+minor) and 17 ≤ m ≤ 33 to the warp kernels (``csrc/radic_warp.cu``,
+``csrc/radic_warp_grad.cuh``: one warp owns a minor); the int32 Pascal
+table bounds every shape the reference's Pallas path answers to those.
+A wrapper given a tensor on the CPU runs its plain version
+(``*_plain``); given a CUDA tensor it launches the kernel or raises — it
+never falls back.  Every launch adds one to the wrapper's ``launches``
+attribute, and a launch of a warp kernel to its ``wide_launches`` too.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.engine import CUDA_MAX_M
+from repro_torch.core.engine import CUDA_MAX_M, WARP_MAX_M
 from repro_torch.core.pascal import INT32_MAX
 from repro_torch.core.radic import (signed_minor_pullback_batched,
                                     signed_minor_sum_batched)
@@ -38,12 +43,15 @@ __all__ = ["radic_batched_partial_cuda", "radic_batched_partial_plain",
            "radic_batched_grad_partial_cuda",
            "radic_batched_grad_partial_plain", "radic_grad_partial_cuda",
            "radic_grad_partial_plain", "radic_batched_partial_bygrid_cuda",
-           "grid_blocks", "grad_grid_blocks", "reset_launch_counts", "TILE",
-           "RUN", "MAX_BLOCKS"]
+           "grid_blocks", "warp_grid_blocks", "grad_grid_blocks",
+           "reset_launch_counts", "TILE", "RUN", "WARP_TILE", "MAX_BLOCKS"]
 
 TILE = 256            # threads per block (common.cuh kTile)
 RUN = 8               # consecutive ranks per thread (common.cuh kRun)
 BATCH_CHUNK = 16      # matrices per block (common.cuh kBatchChunk)
+WARPS = 8             # warps per block of the warp walk (radic_warp.cu)
+WARP_RUN = 8          # consecutive ranks per warp (radic_warp.cu kWarpRun)
+WARP_TILE = WARPS * WARP_RUN   # ranks per tile of the warp walk
 MAX_BLOCKS = 1024     # fixed rank-walk width: bounds the partials buffer
 GRAD_MAX_BLOCKS = 1024      # the same for the gradient kernel (K3) ...
 GRAD_PARTIAL_FLOATS = 1 << 17  # ... whose partials hold G·m·n <= this
@@ -56,6 +64,13 @@ def grid_blocks(count: int) -> int:
     so the reduction order (and with it every bit of a result) never
     depends on the batch."""
     return max(1, min(-(-count // (TILE * RUN)), MAX_BLOCKS))
+
+
+def warp_grid_blocks(count: int) -> int:
+    """Blocks of the warp walk (m ≥ 17): one per tile of ``WARPS`` warps
+    × ``WARP_RUN`` ranks, at most ``MAX_BLOCKS``; a function of ``count``
+    only, as :func:`grid_blocks` is."""
+    return max(1, min(-(-count // WARP_TILE), MAX_BLOCKS))
 
 
 def grad_grid_blocks(count: int, m: int, n: int, tile: int) -> int:
@@ -142,9 +157,9 @@ def radic_grad_partial_plain(A: torch.Tensor, ct, table: torch.Tensor,
 def _check(As: torch.Tensor, table: torch.Tensor, q_start: int,
            count: int, max_batch: int = BATCH_CHUNK * 65535) -> None:
     B, m, n = As.shape
-    if not 1 <= m <= CUDA_MAX_M:
-        raise ValueError(f"the CUDA kernel is built for 1 <= m <= "
-                         f"{CUDA_MAX_M}, got m = {m}")
+    if not 1 <= m <= WARP_MAX_M:
+        raise ValueError(f"the CUDA kernels are built for 1 <= m <= "
+                         f"{WARP_MAX_M}, got m = {m}")
     if n < m:
         raise ValueError(f"expected m <= n, got ({m}, {n})")
     if tuple(table.shape) != (n + 1, m + 1):
@@ -160,21 +175,23 @@ def _check(As: torch.Tensor, table: torch.Tensor, q_start: int,
 def _launch(As: torch.Tensor, table: torch.Tensor, q_start: int,
             count: int, *, bygrid: bool = False) -> torch.Tensor:
     """Launch K1's kernel pair (K4's with ``bygrid``) on the current
-    stream → ``(B,)`` float32."""
+    stream → ``(B,)`` float32: the register walk at m ≤ 16, the warp walk
+    above."""
     from . import _build  # lazy: builds the library at first launch
     _check(As, table, q_start, count,
            max_batch=65535 if bygrid else BATCH_CHUNK * 65535)
     B = As.shape[0]
     X = As.to(torch.float32).contiguous()
     T = table.to(device=As.device, dtype=torch.int32).contiguous()
-    grid = grid_blocks(count)
+    m = As.shape[1]
+    grid = grid_blocks(count) if m <= CUDA_MAX_M else warp_grid_blocks(count)
     partials = torch.empty((grid, B), dtype=torch.float32, device=As.device)
     out = torch.empty((B,), dtype=torch.float32, device=As.device)
     lib = _build.load()
     entry = lib.radic_bygrid_partial if bygrid else lib.radic_batched_partial
     with torch.cuda.device(As.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = entry(X.data_ptr(), B, As.shape[1], As.shape[2], T.data_ptr(),
+        rc = entry(X.data_ptr(), B, m, As.shape[2], T.data_ptr(),
                    int(q_start), int(count), partials.data_ptr(), grid,
                    out.data_ptr(), stream)
     check_rc(lib, rc, "radic")
@@ -218,7 +235,7 @@ def radic_batched_partial_cuda(As: torch.Tensor, table: torch.Tensor,
     if As.shape[0] == 0:
         return torch.zeros((0,), dtype=As.dtype, device=As.device)
     out = _launch(As, table, q_start, count)
-    count_launch(radic_batched_partial_cuda)
+    count_launch(radic_batched_partial_cuda, wide=As.shape[1] > CUDA_MAX_M)
     return out.to(As.dtype)
 
 
@@ -232,7 +249,7 @@ def radic_partial_cuda(A: torch.Tensor, table: torch.Tensor, q_start: int,
         return radic_partial_plain(A, table, q_start, count).to(A.dtype)
     require_cuda(A)
     out = _launch(A[None], table, q_start, count)
-    count_launch(radic_partial_cuda)
+    count_launch(radic_partial_cuda, wide=A.shape[0] > CUDA_MAX_M)
     return out[0].to(A.dtype)
 
 
@@ -250,7 +267,8 @@ def radic_batched_partial_bygrid_cuda(As: torch.Tensor, table: torch.Tensor,
     if As.shape[0] == 0:
         return torch.zeros((0,), dtype=As.dtype, device=As.device)
     out = _launch(As, table, q_start, count, bygrid=True)
-    count_launch(radic_batched_partial_bygrid_cuda)
+    count_launch(radic_batched_partial_bygrid_cuda,
+                 wide=As.shape[1] > CUDA_MAX_M)
     return out.to(As.dtype)
 
 
@@ -268,7 +286,8 @@ def radic_batched_grad_partial_cuda(As: torch.Tensor, cts: torch.Tensor,
     if As.shape[0] == 0:
         return torch.zeros_like(As)
     out = _launch_grad(As, cts, table, q_start, count)
-    count_launch(radic_batched_grad_partial_cuda)
+    count_launch(radic_batched_grad_partial_cuda,
+                 wide=As.shape[1] > CUDA_MAX_M)
     return out.to(As.dtype)
 
 
@@ -284,5 +303,5 @@ def radic_grad_partial_cuda(A: torch.Tensor, ct, table: torch.Tensor,
     require_cuda(A)
     cts = torch.as_tensor(ct, device=A.device).reshape(1)
     out = _launch_grad(A[None], cts, table, q_start, count)
-    count_launch(radic_grad_partial_cuda)
+    count_launch(radic_grad_partial_cuda, wide=A.shape[0] > CUDA_MAX_M)
     return out[0].to(A.dtype)

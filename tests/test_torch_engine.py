@@ -6,13 +6,14 @@ import pytest
 import torch
 
 jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
 
 from repro.core import engine as ref_engine  # noqa: E402
 from repro_torch.core import (DetEngine, default_engine, radic_det,  # noqa: E402
                               radic_det_batched, set_default_engine,
                               stable_key_hash, validate_rank_space)
-from repro_torch.core.engine import BACKENDS, CUDA_MAX_M, PlanKey  # noqa: E402
-from repro_torch.core.pascal import INT32_MAX, comb  # noqa: E402
+from repro_torch.core.engine import BACKENDS, PlanKey  # noqa: E402
+from repro_torch.core.pascal import comb  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 CPU = "cpu"
@@ -52,10 +53,7 @@ def _outcome(fn, *a, **kw):
 def test_cuda_validation_mirrors_reference_pallas(m, n):
     got = _outcome(validate_rank_space, m, n, backend="cuda")
     want = _outcome(ref_engine.validate_rank_space, m, n, backend="pallas")
-    if m > CUDA_MAX_M and m <= n and comb(n, m) <= INT32_MAX:
-        assert got is ValueError   # the kernel's own bound on m
-    else:
-        assert got == want
+    assert got == want   # no bound on m in either package
 
 
 @pytest.mark.parametrize("m,n", RANK_SPACES)
@@ -71,14 +69,28 @@ def test_torch_validation_mirrors_reference_jnp_x64(m, n):
 
 
 def test_plan_time_guards():
+    """The cuda backend answers what the reference's pallas backend
+    answers and refuses what it refuses, with the same error type: m > 16
+    plans (the warp kernels); int32 ranks and the int32 table's peak do
+    not.  The port builds the table at plan time, so (33, 34) fails there;
+    the reference's pallas plan builds it at its first call."""
     eng = DetEngine()
+    ref = ref_engine.DetEngine()
     with pytest.raises(OverflowError):
         eng.plan(16, 40, backend="cuda", device=CPU)
-    with pytest.raises(ValueError, match=str(CUDA_MAX_M)):
-        eng.plan(17, 20, backend="cuda", device=CPU)
+    with pytest.raises(OverflowError):
+        ref.plan(16, 40, backend="pallas")
+    with pytest.raises(OverflowError):
+        eng.plan(33, 34, backend="cuda", device=CPU)
+    with pytest.raises(OverflowError):
+        ref.plan(33, 34, backend="pallas")(jnp.ones((1, 33, 34)))
+    for m, n in [(17, 20), (33, 33)]:
+        got = eng.plan(m, n, backend="cuda", device=CPU)
+        want = ref.plan(m, n, backend="pallas")
+        assert got.total == want.total == comb(n, m)
     assert eng.plan(17, 20, backend="torch", device=CPU).total == \
         comb(20, 17)
-    assert eng.cache_info()["size"] == 1
+    assert eng.cache_info()["size"] == 3
 
 
 # ------------------------------------------------------------- routing

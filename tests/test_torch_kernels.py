@@ -116,7 +116,7 @@ def test_plain_versions_agree_and_do_not_count():
 # ------------------------------------------------------------ guard order
 def test_ops_guard_order():
     """The reference's order: m > n zeros, then the rank-width guard, then
-    the rank range; the bound on m is the port's own."""
+    the rank range, then the int32 table's peak; no bound on m."""
     # m > n returns zeros first, whatever else is wrong with the shape
     z = ops.radic_det_batched_cuda(torch.ones(3, 17, 4))
     assert z.shape == (3,) and not z.any()
@@ -130,9 +130,17 @@ def test_ops_guard_order():
             ref_ops.radic_det_pallas(jnp.ones(shape, jnp.float32))
     with pytest.raises(OverflowError):
         ops.radic_det_batched_cuda(torch.ones(2, 10, 44))
-    # the kernel's bound on m, named in the error
-    with pytest.raises(ValueError, match="16"):
-        ops.radic_det_batched_cuda(torch.ones(1, 17, 20))
+    # m > 16 is answered, as the reference answers it; the int32 table's
+    # peak C(34, 17) stops (33, 34) in both packages
+    ones = np.ones((1, 17, 20), np.float32)
+    np.testing.assert_allclose(
+        ops.radic_det_batched_cuda(torch.from_numpy(ones)).numpy(),
+        np.asarray(ref_ops.radic_det_batched_pallas(jnp.asarray(ones))),
+        rtol=1e-3, atol=1e-4)
+    with pytest.raises(OverflowError):
+        ops.radic_det_batched_cuda(torch.ones(1, 33, 34))
+    with pytest.raises(OverflowError):
+        ref_ops.radic_det_batched_pallas(jnp.ones((1, 33, 34), jnp.float32))
     # a rank range past C(n, m), in both packages
     with pytest.raises(ValueError, match="rank range"):
         ops.radic_det_cuda(torch.ones(3, 8), q_start=50, count=7)
@@ -252,7 +260,7 @@ def test_k6_plain_singular_and_permuted():
 
 def test_new_entries_guard_order():
     """The reference's guard order on the gradient, by-grid and unrank
-    entries; minor_det's only guard is its kernel's bound on m."""
+    entries; minor_det has no guard, as in the reference."""
     # m > n returns zeros first
     g = ops.radic_det_batched_grad_cuda(torch.ones(2, 17, 4), [1.0, 1.0])
     assert g.shape == (2, 17, 4) and not g.any()
@@ -272,11 +280,24 @@ def test_new_entries_guard_order():
     with pytest.raises(OverflowError):
         ref_ops.radic_det_batched_grad_pallas(jnp.ones((1, 16, 40)),
                                               jnp.ones(1))
-    # the kernels' bound on m, named in the error; unrank has none
-    with pytest.raises(ValueError, match="16"):
-        ops.radic_det_batched_grad_cuda(torch.ones(1, 17, 20), [1.0])
-    with pytest.raises(ValueError, match="16"):
-        ops.minor_det(torch.ones(2, 17, 17))
+    # no bound on m: the gradient and minor_det answer m = 17 as the
+    # reference does, and the table's peak stops (33, 34) in both
+    ones = np.ones((1, 17, 20), np.float32)
+    np.testing.assert_allclose(
+        ops.radic_det_batched_grad_cuda(torch.from_numpy(ones),
+                                        [1.0]).numpy(),
+        np.asarray(ref_ops.radic_det_batched_grad_pallas(
+            jnp.asarray(ones), jnp.ones(1))), rtol=1e-3, atol=1e-4)
+    with pytest.raises(OverflowError):
+        ops.radic_det_batched_grad_cuda(torch.ones(1, 33, 34), [1.0])
+    with pytest.raises(OverflowError):
+        ref_ops.radic_det_batched_grad_pallas(jnp.ones((1, 33, 34)),
+                                              jnp.ones(1))
+    eye = np.stack([np.eye(17, dtype=np.float32), np.ones((17, 17),
+                                                          np.float32)])
+    np.testing.assert_allclose(
+        ops.minor_det(torch.from_numpy(eye)).numpy(),
+        np.asarray(ref_ops.minor_det(jnp.asarray(eye))), atol=1e-6)
     got = ops.unrank(torch.arange(5, dtype=torch.int32), 20, 17)
     np.testing.assert_array_equal(got.numpy(), ref.unrank_ref(
         np.arange(5), 20, 17))

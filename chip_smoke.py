@@ -11,8 +11,9 @@ per source, all at once) and runs these phases, each printing its lines:
    time and the compiler's register/spill report (the warp kernels'
    instances included), K3's rank tile for each m, the shared memory per
    block of K1 and K3 at a few shapes (wide ones too), and static
-   SASS instruction counts by opcode of both kernels at m = 8
-   (``cuobjdump``, where the toolkit has it);
+   SASS instruction counts by opcode of both kernels at m = 8 and of
+   their warp kernels at m = 20 (``cuobjdump``, where the toolkit has
+   it);
 2. K1 (``radic_batched_partial_cuda``) against its plain torch version in
    float64 on the card: shapes, batch sizes, partial rank ranges (shorter
    than one thread's run, straddling runs, tiles and blocks; n = m, m = 1,
@@ -66,7 +67,9 @@ per source, all at once) and runs these phases, each printing its lines:
    (2, 32, 33) and ranges of (3, 20, 30), K4 == K1, the B = 1 entry ==
    K1's slot, batch-slot independence and repeats bit for bit; K3 on the
    same shapes and on stacks with a duplicate or a zero column at
-   (3, 20, 24), each run twice; K6 at m = 17, 32, 33, 64 and 250 in
+   (3, 20, 24), each run twice; K1, K4 and K3 at every m = 17..33 with
+   n = m and m + 1 (but the table's (33, 34)); K6 at m = 17, 32, 33, 64
+   and 250 in
    float32 and float64 (warp, block in shared memory, block on a global
    copy), singular matrices exactly 0, a row swap an exact negation; NaN
    input (a NaN column or row for K1 and K3 at (3, 20, 24), K6 at m = 20,
@@ -337,24 +340,46 @@ def phase_device() -> None:
         print(f"shared memory per block at ({B},{m},{n}): K1 "
               f"{lib.radic_partial_smem_bytes(B, m, n)} B, K3 "
               f"{lib.radic_grad_smem_bytes(B, m, n)} B")
+    # the Python twins of the warp kernels' shared memory (held within a
+    # block's 227 KB at every m by the CPU tests) against the library's
+    from repro_torch.kernels import radic_fused as rf
+    for m in range(17, 34):
+        check(lib.radic_grad_tile(m) == rf.warp_grad_tile(m) and
+              lib.radic_grad_smem_bytes(16, m, 33) ==
+              rf.warp_grad_smem_bytes(m) and
+              lib.radic_partial_smem_bytes(16, m, 33) ==
+              rf.warp_partial_smem_bytes(16, m, 33),
+              f"the warp kernels' shared memory at m = {m} differs from "
+              "its Python twin")
+    print("warp kernels' shared memory per block at m = 17..33: K1 "
+          f"{[rf.warp_partial_smem_bytes(16, m, 33) for m in range(17, 34)]}"
+          f" B (16, m, 33), K3 "
+          f"{[rf.warp_grad_smem_bytes(m) for m in range(17, 34)]} B; the "
+          "library's own counts equal")
     for line in sass_counts(info["path"]):
         print(line)
 
 
 SASS_OPS = ("FFMA", "FMUL", "FADD", "FSEL", "SEL", "MUFU", "LDS", "LDG",
-            "STS", "BAR", "ATOMS")
-# K1 at m = 8 (the staged instance where the kernel has one) and K3 at m = 8
+            "STS", "BAR", "ATOMS", "SHFL", "REDUX")
+# K1 at m = 8 (the staged instance where the kernel has one) and K3 at m = 8,
+# and the warp kernels of both at m = 20 (their cross-lane traffic: SHFL
+# and REDUX against LDS and STS)
 SASS_KERNELS = {"K1 radic_partial_kernel<8>":
                 r"radic20radic_partial_kernelILi8E(Lb1E)?E",
                 "K3 radic_grad_partial_kernel<8,T>":
-                r"radic25radic_grad_partial_kernelILi8ELi\d+EE"}
+                r"radic25radic_grad_partial_kernelILi8ELi\d+EE",
+                "K1 wide radic_warp_partial_kernel<20>":
+                r"radic25radic_warp_partial_kernelILi20EE",
+                "K3 wide radic_grad_warp_kernel<20>":
+                r"radic22radic_grad_warp_kernelILi20EE"}
 
 
 def sass_counts(lib_path: str) -> list[str]:
-    """Static SASS instruction counts of K1's and K3's kernels at m = 8,
-    by opcode, from ``cuobjdump -sass`` of the built library (the
-    evidence the card gives without ``ncu``); a line saying so where the
-    toolkit has no ``cuobjdump``."""
+    """Static SASS instruction counts of K1's and K3's kernels at m = 8
+    and of their warp kernels at m = 20, by opcode, from ``cuobjdump
+    -sass`` of the built library (the evidence the card gives without
+    ``ncu``); a line saying so where the toolkit has no ``cuobjdump``."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1128,8 +1153,38 @@ def phase_wide(errs: Errors, gen: torch.Generator) -> dict:
           "launch ten times")
     print("K6 wide: m = 17, 32, 33, 64, 250 in float32 and float64; "
           "singular give 0, a row swap negates")
+    phase_wide_every_m(errs, gen, plain64, grad64)
     phase_wide_nan(errs, gen, plain64, grad64)
     return launches
+
+
+def phase_wide_every_m(errs: Errors, gen: torch.Generator, plain64,
+                       grad64) -> None:
+    """K1 (with K4 == K1) and K3 at every m of the warp kernels, n = m and
+    m + 1, against float64 plain (K3 reads U's and L's rows in 16-byte
+    groups, the last of which ends m mod 4 columns in; m = 33 keeps two
+    rows in lane 0); (33, 34) is refused by the int32 table in both
+    packages."""
+    from repro_torch.core.pascal import comb
+    from repro_torch.kernels import ops
+
+    for m in range(17, 34):
+        for n in (m, m + 1):
+            if (m, n) == (33, 34):
+                continue
+            As = torch.randn(2, m, n, device="cuda", generator=gen)
+            cts = torch.tensor([1.5, -0.75], device="cuda")
+            label = f"every m (2,{m},{n})"
+            got = ops.radic_det_batched_cuda(As)
+            torch.cuda.synchronize()
+            errs.hold("K1 wide", label, got, plain64(As, 0, comb(n, m)))
+            check(torch.equal(ops.radic_det_batched_cuda_bygrid(As), got),
+                  f"K4 differs from K1 on {label}")
+            g = ops.radic_det_batched_grad_cuda(As, cts)
+            torch.cuda.synchronize()
+            errs.hold("K3 wide", label, g, grad64(As, cts, 0, comb(n, m)))
+    print("wide every m: K1, K4 and K3 at m = 17..33, n = m and m + 1 "
+          "(but (33, 34)), against float64 plain")
 
 
 def phase_wide_nan(errs: Errors, gen: torch.Generator, plain64,

@@ -84,11 +84,14 @@ __device__ __forceinline__ decltype(abs_bits(T())) inf_bits() {
 // product.  With KeepL, a[s][k] keeps the multiplier of step k (k < the row's
 // place) and the row's entries from its place on are U's, so the rows
 // hold P a = L U; `place[s]` is the row's place in P a, and `zero_pivot`
-// says whether a pivot was exactly 0.
+// says whether a pivot was exactly 0.  With `inv_of`, the lane that
+// holds row k of the matrix (slot s: row warp_row(lane, s)) keeps step
+// k's reciprocal 1 / U[k][k] in inv_of[s], for k < M - 1.
 template <int M, bool KeepL, typename T>
 __device__ __forceinline__ T warp_lu(T (&a)[warp_rows<M>()][M],
                                      int (&place)[warp_rows<M>()], int lane,
-                                     bool& zero_pivot, T& sign) {
+                                     bool& zero_pivot, T& sign,
+                                     T* inv_of = nullptr) {
   constexpr int R = warp_rows<M>();
 #pragma unroll
   for (int s = 0; s < R; ++s) place[s] = warp_row(lane, s);
@@ -155,6 +158,7 @@ __device__ __forceinline__ T warp_lu(T (&a)[warp_rows<M>()][M],
     bool below[R];
 #pragma unroll
     for (int s = 0; s < R; ++s) {
+      if (inv_of != nullptr && warp_row(lane, s) == k) inv_of[s] = inv;
       below[s] = warp_row(lane, s) < M && place[s] > k;
       f[s] = below[s] ? quotient(a[s][k], safe, inv) : T(0);
       if (KeepL && below[s]) a[s][k] = f[s];

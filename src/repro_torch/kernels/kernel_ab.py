@@ -1,20 +1,26 @@
 """Same-process A/B timing of kernel design choices on the card.
 
 Each experiment names variants of the kernel sources in ``csrc/``, each a
-set of text edits (a choice switched off or changed), and the shapes at
-which K1 (``radic_batched_partial``), K4 (``radic_bygrid_partial``), K3
+set of text edits (a choice switched off or changed) or of launch
+parameters of ``radic_fused`` (``PY``), and the shapes at which K1
+(``radic_batched_partial``), K4 (``radic_bygrid_partial``), K3
 (``radic_batched_grad_partial``), K5 (``radic_unrank``) or K6
-(``radic_minor_det``, float32; ``K6d``: float64) is timed.  ``--baseline DIR`` adds one more variant, ``base``:
-the sources of another checkout's ``csrc`` directory as they are (the
-parent commit's, to time a redesigned kernel against its old self in one
-call).  The checkout's sources (``cur``) and every variant are compiled
-in parallel into ``build/kernel_ab/``, loaded side by side, and timed on
-the same inputs in alternating order (cur, variants, reversed, ...), each
-time a CUDA-event window over back-to-back calls: the calls run for
+(``radic_minor_det``, float32; ``K6d``: float64) is timed.
+``--baseline DIR`` adds one more variant, ``base``: the sources of
+another checkout's ``csrc`` directory as they are (the parent commit's,
+to time a redesigned kernel against its old self in one call), launched
+with the grids of the ``radic_fused.py`` beside it where there is one,
+and each ``diag_`` variant built on them too (``base+<variant>``).  The
+checkout's sources (``cur``) and every variant are compiled in parallel
+into ``build/kernel_ab/``, loaded side by side, and timed on the same
+inputs in alternating order (cur, variants, reversed, ...), each time a
+CUDA-event window over back-to-back calls: the calls run for
 milliseconds, so the window holds device time (K5 and K6, whose small
 shapes run for microseconds, are also timed by the profiler).  Every
 variant's result must equal ``cur``'s bit for bit (no choice here moves
-arithmetic; ``diag_`` variants, which take a phase out, are exempt), and
+arithmetic), but for ``diag_`` variants, which take a phase out, launch
+parameters, which change a reduction's order, and the baseline's
+kernels redesigned since (``REDESIGNED``), whose difference is printed;
 ptxas's registers and spills are printed for the kernels timed.
 
     python -m repro_torch.kernels.kernel_ab [--baseline DIR] [EXPERIMENT ...]
@@ -26,13 +32,17 @@ every time.  Without a card it exits with an error.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import importlib.util
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -71,6 +81,80 @@ K6_SHAPES = [("K6", 1 << 20, 8, 8), ("K6d", 1 << 20, 8, 8),
              ("K6", 1 << 18, 16, 16), ("K6d", 1 << 18, 16, 16),
              ("K6", 2048, 8, 8)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
+# kernels redesigned at m > 16 since the baseline: their bits may differ
+# from the baseline's
+REDESIGNED = ("K3",)
+# The warp kernels' phases (csrc/warp.cuh, csrc/radic_warp_grad.cuh) and
+# the edits that take each out, as {old: new} for the sources of the
+# earlier K3 (X and Z through shared memory) and of this one, so that the
+# same diagnostics run on a baseline checkout's kernels; exactly one
+# `old` must be in the file, once.
+WARP_GRAD = "radic_warp_grad.cuh"
+PY = "py"  # an edit of a launch parameter of radic_fused.py, not a source
+_SEARCH_INLINE = """    // this lane's best eligible row (bits, key); a lane with none keeps
+    // (0, 1 << 30), which the row at place k always beats
+    decltype(abs_bits(T())) best = 0;
+    int key = 1 << 30;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      if (warp_row(lane, s) < M && place[s] >= k) {
+        const auto cap = place[s] == k ? ~decltype(best)(0) : inf_bits<T>();
+        const auto u = abs_bits(a[s][k]);
+        const int kk = place[s] * 64 + warp_row(lane, s);
+        if (s == 0) {
+          best = u < cap ? u : cap;
+          key = kk;
+        } else {
+          pivot_max(best, key, u < cap ? u : cap, kk);
+        }
+      }
+    }
+    if constexpr (sizeof(T) == 4) {
+      // two warp reductions: the largest bits, then the smallest key
+      // among their holders
+      const unsigned top = __reduce_max_sync(kFullMask, best);
+      key = static_cast<int>(__reduce_min_sync(
+          kFullMask, best == top ? static_cast<unsigned>(key) : ~0u));
+    } else {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const auto ob = __shfl_xor_sync(kFullMask, best, off);
+        const int ok = __shfl_xor_sync(kFullMask, key, off);
+        pivot_max(best, key, ob, ok);
+      }
+    }
+"""
+WARP_SEARCH = {
+    _SEARCH_INLINE: "    int key = k * 64 + k;  // diag: no search\n"}
+# the row's columns past the pivot from the lane's own row (the pivot
+# itself still broadcast, so that every lane takes the same branches)
+WARP_BCAST = {"      const T top = col(j);\n":
+              "      const T top = a[0][j];  // diag: no broadcast\n"}
+K3_X = {
+    "  for (int c0 = 0; c0 < M; c0 += 32) {":
+    "  for (int c0 = M; c0 < M; c0 += 32) {",
+    "  float x[R][M];\n#pragma unroll\n  for (int r = M - 1; r >= 0; --r) {":
+    "  float x[R][M];\n  for (int r = 0; r < M; ++r)\n"
+    "    for (int s = 0; s < R; ++s) x[s][r] = dg[s];  // diag: no X\n"
+    "  for (int r = M - 1; r >= M; --r) {"}
+K3_Z = {"      for (int i = M - 2; i >= 0; --i) {":
+        "      for (int i = -1; i >= 0; --i) {",
+        "  for (int i = M - 2; i >= 0; --i) {\n    float lc[BR];":
+        "  for (int i = M - 2; i >= M; --i) {\n    float lc[BR];"}
+K3_SCATTER = {
+    "      for (int e = tid; e < mn; e += kGradWarpThreads) {\n"
+    "        const int c = e / M;":
+    "      for (int e = mn; e < mn; e += kGradWarpThreads) {\n"
+    "        const int c = e / M;"}
+K3_BAR_NEXT = {
+    "      if (bb > 0) __syncthreads();  // the owners are done with cof_s\n":
+    "\n"}
+K3_BAR_DONE = {
+    f"{tail}      __syncthreads();\n": tail for tail in (
+        "                            x_s + warp * M * S, perm_s + warp * M, "
+        "lane);\n",
+        "                            lt_s + warp * M * BR, perm_s + warp * BR, "
+        "lane);\n")}
 
 
 # name -> (variants {name: [(file, old, new), ...]}, shapes [(kernel, B, m, n)])
@@ -108,12 +192,45 @@ EXPERIMENTS = {
     # sake)
     "k5_k6": ({}, [("K5", 10_518_300, 8, 32), *K6_SHAPES,
                    ("K5", 4096, 12, 24)]),
-    # the warp kernels (m >= 17) at the shapes chip_smoke.py times: K1 at
-    # (3, 20, 30), K3 at (3, 20, 26), K6 at (65536, 32, 32) in float32 and
-    # float64; no variants of their own (with --baseline, against the
-    # baseline's)
-    "wide": ({}, [("K1", 3, 20, 30), ("K3", 3, 20, 26),
+    # the warp kernels (m >= 17) at the shapes chip_smoke.py times: K1 and
+    # K4 at (3, 20, 30), K3 at (3, 20, 26), K6 at (65536, 32, 32) in
+    # float32 and float64; no variants of their own (with --baseline,
+    # against the baseline's)
+    "wide": ({}, [("K1", 3, 20, 30), ("K4", 3, 20, 30), ("K3", 3, 20, 26),
                   ("K6", 65536, 32, 32), ("K6d", 65536, 32, 32)]),
+    # diagnostics of the two warp kernels, each taking one phase out (with
+    # --baseline, of the baseline's kernels too): warp_lu's pivot-row
+    # broadcast (each lane uses its own row), its pivot search (the pivot
+    # at place k), both; K3's X = det(U) U^-1, its Z = X L^-1, its owner
+    # scatter, its two barriers per matrix, and its grid cap (four times
+    # the partials budget: more blocks)
+    "wide_diag": ({
+        "diag_no_bcast": [("warp.cuh", WARP_BCAST)],
+        "diag_no_search": [("warp.cuh", WARP_SEARCH)],
+        "diag_neither": [("warp.cuh", WARP_BCAST), ("warp.cuh", WARP_SEARCH)],
+        "diag_no_x": [(WARP_GRAD, K3_X)],
+        "diag_no_z": [(WARP_GRAD, K3_Z)],
+        "diag_no_scatter": [(WARP_GRAD, K3_SCATTER)],
+        "diag_no_bar": [(WARP_GRAD, K3_BAR_NEXT), (WARP_GRAD, K3_BAR_DONE)],
+        "diag_grid4x": [(PY, "GRAD_PARTIAL_FLOATS", 1 << 19),
+                        (PY, "WARP_GRAD_PARTIAL_FLOATS", 1 << 22)],
+    }, [("K1", 3, 20, 30), ("K3", 3, 20, 26)]),
+    # the design moves of the warp kernels, each switched back off: K3
+    # wide's partials budget at m > 16 (4 MB a matrix) against the 512 KB
+    # of the register kernel and 2 MB (another grid: another reduction
+    # order)
+    "wide_moves": ({
+        "k3_grid_1x": [(PY, "WARP_GRAD_PARTIAL_FLOATS", 1 << 17)],
+        "k3_grid_4x": [(PY, "WARP_GRAD_PARTIAL_FLOATS", 1 << 19)],
+    }, [("K3", 3, 20, 26), ("K3", 16, 28, 33), ("K3", 64, 26, 30),
+        ("K3", 64, 30, 33)]),
+    # K1 and K3 wide at m = 17..30 (B, m, n: 3e5 to 2e7 (rank, matrix)
+    # pairs a call); no variants of their own (with --baseline, against
+    # the baseline's)
+    "wide_m": ({}, [
+        (kernel, B, m, n) for B, m, n in [
+            (3, 17, 26), (3, 20, 28), (3, 22, 30), (16, 24, 30), (16, 26, 32),
+            (16, 28, 33), (64, 30, 33)] for kernel in ("K1", "K3")]),
     # K6's staged tile at m <= 16 (the wrapper's 128 matrices at a stride
     # of m^2 + 1, in up to 227 KB of shared memory) against a 100 KB and a
     # 48 KB budget and against no staging (each thread reading its matrix
@@ -134,58 +251,121 @@ def _includes(src: Path) -> set[str]:
     return set(re.findall(r'#include "([^"]+)"', src.read_text()))
 
 
+def _source_edits(edits: list) -> list[tuple[str, dict]]:
+    """A variant's edits of sources as (file, {old: new}): ``(file, old,
+    new)`` or ``(file, {old: new, ...})``, alternatives of which exactly
+    one must be in the file; edits of launch parameters (``PY``) left
+    out."""
+    return [(e[0], e[1] if len(e) == 2 else {e[1]: e[2]})
+            for e in edits if e[0] != PY]
+
+
 def _build_all(variants: dict[str, list],
                baseline: Path | None = None) -> tuple[dict, dict]:
     """Compile ``cur`` and each variant (only the sources its edits reach;
     the rest reuse ``cur``'s objects), and ``base``, every source of
-    ``baseline``, where given; link and bind each library; returns the
+    ``baseline``, where given, with each ``diag_`` variant of it
+    (``base+<variant>``); link and bind each library; returns the
     libraries and ptxas's registers and spills of each, by name."""
     nvcc = _build._nvcc()
     shutil.rmtree(OUT, ignore_errors=True)
-    srcs = sorted(_build.CSRC.glob("*.cu"))
     every = {"cur": [], **variants}
     if baseline is not None:
         every["base"] = []
+        every.update({f"base+{v}": e for v, e in variants.items()
+                      if _is_diag(v)})
     jobs = {}
     for name, edits in every.items():
+        root = "base" if name.startswith("base") else "cur"
+        src_dir = baseline if root == "base" else _build.CSRC
         d = OUT / name
-        shutil.copytree(baseline if name == "base" else _build.CSRC, d)
+        shutil.copytree(src_dir, d)
         touched = set()
-        for fn, old, new in edits:
+        for fn, alts in _source_edits(edits):
             text = (d / fn).read_text()
-            if text.count(old) != 1:
-                raise SystemExit(f"{name}: {old!r} is not in {fn} once; "
-                                 "the experiment no longer fits the sources")
-            (d / fn).write_text(text.replace(old, new))
+            hits = [old for old in alts if text.count(old) == 1]
+            if len(hits) != 1:
+                raise SystemExit(f"{name}: no single one of {list(alts)!r} "
+                                 f"is in {fn} once; the experiment no "
+                                 "longer fits the sources")
+            (d / fn).write_text(text.replace(hits[0], alts[hits[0]]))
             touched.add(fn)
-        for s in (sorted(d.glob("*.cu")) if name == "base" else srcs):
-            if name in ("cur", "base") or s.name in touched or \
+        for s in sorted(src_dir.glob("*.cu")):
+            if name == root or s.name in touched or \
                     _includes(s) & touched or \
-                    any(_includes(_build.CSRC / h) & touched
-                        for h in _includes(s) if (_build.CSRC / h).exists()):
-                cmd = [nvcc, *_build.NVCC_FLAGS, "-c", "-o",
-                       str(d / f"{s.name}.o"), str(d / s.name)]
-                jobs[(name, s.name)] = subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)
+                    any(_includes(src_dir / h) & touched
+                        for h in _includes(s) if (src_dir / h).exists()):
+                jobs[(name, s.name)] = [nvcc, *_build.NVCC_FLAGS, "-c", "-o",
+                                        str(d / f"{s.name}.o"),
+                                        str(d / s.name)]
     logs = {}
-    for (name, src), proc in jobs.items():
-        text = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed on {name}/{src}:\n{text[-4000:]}")
-        logs[name] = logs.get(name, "") + text
+
+    def compile_one(key):
+        proc = subprocess.run(jobs[key], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        return key, proc.returncode, proc.stdout
+
+    # at most two compilers a core at once: each takes a GB or more
+    with ThreadPoolExecutor(2 * (os.cpu_count() or 4)) as pool:
+        for (name, src), rc, text in pool.map(compile_one, list(jobs)):
+            if rc:
+                raise SystemExit(f"nvcc failed on {name}/{src}:\n"
+                                 f"{text[-4000:]}")
+            logs[name] = logs.get(name, "") + text
     libs, ptxas = {}, {}
     for name in every:
+        root = "base" if name.startswith("base") else "cur"
         d = OUT / name
-        objs = [str((d if (d / f"{s.name}.o").exists() else OUT / "cur")
+        objs = [str((d if (d / f"{s.name}.o").exists() else OUT / root)
                     / f"{s.name}.o")
-                for s in (sorted(d.glob("*.cu")) if name == "base" else srcs)]
+                for s in sorted((OUT / root).glob("*.cu"))]
         subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                         "-shared", "-o", str(d / "lib.so"), *objs],
                        check=True)
         libs[name] = _build._bind(ctypes.CDLL(str(d / "lib.so")))
-        ptxas[name] = _ptxas(logs.get(name, "") or logs["cur"])
+        ptxas[name] = {**_ptxas(logs[root]), **_ptxas(logs.get(name, ""))}
     return libs, ptxas
+
+
+def _is_diag(variant: str) -> bool:
+    return variant.split(".")[-1].startswith("diag_")
+
+
+def _launch_only(edits: list) -> bool:
+    """A variant of launch parameters (a grid changes the order of the
+    partials' reduction, so its bits may differ)."""
+    return bool(edits) and all(e[0] == PY for e in edits)
+
+
+@contextlib.contextmanager
+def _launch_params(module, edits: list):
+    """Set a variant's launch parameters (``(PY, name, value)`` edits of
+    the constants of ``module``, a ``radic_fused``; a name the module does
+    not have is left out) while its calls are made."""
+    saved = {e[1]: getattr(module, e[1]) for e in edits
+             if e[0] == PY and hasattr(module, e[1])}
+    try:
+        for name in saved:
+            setattr(module, name, next(e[2] for e in edits
+                                       if e[0] == PY and e[1] == name))
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
+
+
+def _launcher(baseline: Path | None):
+    """The baseline's ``radic_fused`` (beside its ``csrc``), which sets
+    the grids its kernels are launched with, else this checkout's."""
+    src = baseline.parent / "radic_fused.py" if baseline else None
+    if src is None or not src.exists():
+        return rf
+    spec = importlib.util.spec_from_file_location(
+        "repro_torch.kernels._baseline_radic_fused", src)
+    module = importlib.util.module_from_spec(spec)
+    module.__package__ = "repro_torch.kernels"
+    spec.loader.exec_module(module)
+    return module
 
 
 def _ptxas(log: str) -> dict[str, str]:
@@ -196,8 +376,12 @@ def _ptxas(log: str) -> dict[str, str]:
         if e:
             k1 = re.search(r"radic_partial_kernelILi(\d+)ELb(\d)", e.group(1))
             k3 = re.search(r"radic_grad_partial_kernelILi(\d+)E", e.group(1))
+            w1 = re.search(r"radic_warp_partial_kernelILi(\d+)E", e.group(1))
+            w3 = re.search(r"radic_grad_warp_kernelILi(\d+)E", e.group(1))
             cur = (f"K1<{k1.group(1)},{'staged' if k1.group(2) == '1' else 'global'}>"
-                   if k1 else f"K3<{k3.group(1)}>" if k3 else None)
+                   if k1 else f"K3<{k3.group(1)}>" if k3 else
+                   f"K1<{w1.group(1)},warp>" if w1 else
+                   f"K3<{w3.group(1)},warp>" if w3 else None)
         sp = re.search(r"(\d+) bytes spill stores", line)
         if cur and sp:
             out[cur] = f"spill {sp.group(1)} B"
@@ -208,13 +392,14 @@ def _ptxas(log: str) -> dict[str, str]:
     return out
 
 
-def _call(lib, kernel: str, As, cts, table, count: int):
-    """A closure launching one call of `kernel`, and its output."""
+def _call(lib, kernel: str, As, cts, table, count: int, grids=rf):
+    """A closure launching one call of `kernel` with the grids of
+    ``grids`` (a ``radic_fused``), and its output."""
     B, m, n = As.shape
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     if kernel in ("K1", "K4"):
-        G = (rf.grid_blocks(count) if m <= rf.CUDA_MAX_M
-             else rf.warp_grid_blocks(count))
+        G = (grids.grid_blocks(count) if m <= rf.CUDA_MAX_M
+             else grids.warp_grid_blocks(count))
         part = torch.empty((G, B), device="cuda")
         out = torch.empty((B,), device="cuda")
         args = (As.data_ptr(), B, m, n, table.data_ptr(), 0, count,
@@ -222,7 +407,7 @@ def _call(lib, kernel: str, As, cts, table, count: int):
         fn = (lib.radic_batched_partial if kernel == "K1"
               else lib.radic_bygrid_partial)
     else:
-        G = rf.grad_grid_blocks(count, m, n, lib.radic_grad_tile(m))
+        G = grids.grad_grid_blocks(count, m, n, lib.radic_grad_tile(m))
         part = torch.empty((G, B, m, n), device="cuda")
         out = torch.empty((B, m, n), device="cuda")
         args = (As.data_ptr(), cts.data_ptr(), B, m, n, table.data_ptr(), 0,
@@ -324,6 +509,7 @@ def main(argv: list[str]) -> int:
         for v, edits in EXPERIMENTS[e][0].items():
             variants[f"{e}.{v}"] = edits
     libs, ptxas = _build_all(variants, baseline)
+    base_grids = _launcher(baseline)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -333,14 +519,21 @@ def main(argv: list[str]) -> int:
     for e in names:
         for kernel, B, m, n in EXPERIMENTS[e][1]:
             order = ["cur", *(f"{e}.{v}" for v in EXPERIMENTS[e][0]),
-                     *(["base"] if baseline is not None else [])]
+                     *(["base"] if baseline is not None else []),
+                     *(f"base+{e}.{v}" for v in EXPERIMENTS[e][0]
+                       if baseline is not None and _is_diag(v))]
             if kernel in ("K1", "K3", "K4"):
                 As = torch.randn(B, m, n, device="cuda", generator=gen)
                 cts = torch.randn(B, device="cuda", generator=gen)
                 table = torch.as_tensor(
                     binom_table(n, m, dtype=np.int32)).cuda()
-                calls = {v: _call(libs[v], kernel, As, cts, table,
-                                  comb(n, m)) for v in order}
+                calls = {}
+                for v in order:
+                    grids = base_grids if v.startswith("base") else rf
+                    with _launch_params(grids,
+                                        variants.get(v.split("+")[-1], [])):
+                        calls[v] = _call(libs[v], kernel, As, cts, table,
+                                         comb(n, m), grids)
             else:
                 x = _inputs(kernel, B, m, n, gen)
                 calls = {v: _call_small(libs[v], kernel, x, m, n)
@@ -372,8 +565,16 @@ def main(argv: list[str]) -> int:
             for v in order:
                 got = calls[v][1]
                 same = bool(torch.equal(got, want))
-                ok &= same or v.split(".")[-1].startswith("diag_")
-                key = f"K{kernel[1]}<{m}"
+                # the baseline's redesigned kernels may differ in the last
+                # bits: the difference is printed
+                ok &= same or _is_diag(v) or _launch_only(
+                    variants.get(v.split("+")[-1], [])) or (
+                    v == "base" and kernel in REDESIGNED and m > rf.CUDA_MAX_M)
+                gap = ((got.double() - want.double()).abs().max()
+                       / want.double().abs().max())
+                diff = "" if same else (
+                    f" (max |diff| / max |cur| {float(gap):.3e})")
+                key = f"K{'1' if kernel == 'K4' else kernel[1]}<{m}"
                 regs = "; ".join(f"{k} {s}" for k, s in
                                  ptxas[v].items() if k.startswith(key))
                 profiled = "".join(
@@ -383,7 +584,8 @@ def main(argv: list[str]) -> int:
                       f"{' '.join(f'{t:.4f}' for t in ms[v])}, "
                       + (f"profiled device ms{profiled}, " if prof[v]
                          else "")
-                      + f"{'same bits' if same else 'BITS DIFFER'}; {regs}"
+                      + f"{'same bits' if same else 'BITS DIFFER'}{diff}; "
+                      f"{regs}"
                       + bound,
                       flush=True)
                 result["times"].append(dict(

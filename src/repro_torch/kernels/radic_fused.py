@@ -55,6 +55,11 @@ WARP_TILE = WARPS * WARP_RUN   # ranks per tile of the warp walk
 MAX_BLOCKS = 1024     # fixed rank-walk width: bounds the partials buffer
 GRAD_MAX_BLOCKS = 1024      # the same for the gradient kernel (K3) ...
 GRAD_PARTIAL_FLOATS = 1 << 17  # ... whose partials hold G·m·n <= this
+# ... and at m >= 17, where fewer blocks than the card holds leave the
+# warp kernel's latency exposed (4 MB a matrix: G = min(tiles, 1024) for
+# every m·n <= 1024)
+WARP_GRAD_PARTIAL_FLOATS = 1 << 20
+GRAD_WARPS = 8        # warps per block of the warp gradient kernel
 PLAIN_CHUNK = 2048    # ranks per step of the plain versions
 
 
@@ -73,14 +78,52 @@ def warp_grid_blocks(count: int) -> int:
     return max(1, min(-(-count // WARP_TILE), MAX_BLOCKS))
 
 
+def vec_row(m: int) -> int:
+    """Floats of one row of U or of L by columns in a warp's scratch of
+    the warp gradient kernel (radic_warp_grad.cuh ``vec_row``): the
+    16-byte groups that cover m columns."""
+    return -(-m // 4) * 4
+
+
+def warp_partial_smem_bytes(B: int, m: int, n: int) -> int:
+    """Shared memory per block of the warp walk (radic_warp.cu
+    ``warp_partial_smem_bytes``): the block's sums per (matrix, warp), the
+    Pascal table and the block's batch slice of A."""
+    nb = min(BATCH_CHUNK, B)
+    return 4 * (BATCH_CHUNK * WARPS + (n + 1) * (m + 1) + nb * m * n)
+
+
+def warp_grad_tile(m: int) -> int:
+    """Ranks per tile of the warp gradient kernel (radic_warp_grad.cuh
+    ``warp_grad_tile``): 32, halved (to 8 at least) while the tile's
+    cofactors exceed 48 KB."""
+    t = 32
+    while t > 8 and t * m * m * 4 > 48 * 1024:
+        t //= 2
+    return t
+
+
+def warp_grad_smem_bytes(m: int) -> int:
+    """Shared memory per block of the warp gradient kernel
+    (radic_warp_grad.cuh ``warp_grad_bytes``): W rank masks, the tile's
+    cofactors, each warp's U (later X, rows of ``m | 1``), L by columns
+    and permutation, W signs and the tile's combos."""
+    W, br = warp_grad_tile(m), vec_row(m)
+    u = -(-m * max(br, m | 1) // 4) * 4
+    return 8 * W + 4 * (W * m * m + GRAD_WARPS * (u + (m + 1) * br) + W
+                        + W * m)
+
+
 def grad_grid_blocks(count: int, m: int, n: int, tile: int) -> int:
     """Blocks of the gradient kernel's rank walk: one per tile of
     ``tile`` ranks (the kernel's own, ``radic_grad_tile(m)``), at most
     ``GRAD_MAX_BLOCKS``, and few enough that each matrix's partials
-    ``(G, m, n)`` hold at most ``GRAD_PARTIAL_FLOATS`` floats (512 KB).
+    ``(G, m, n)`` hold at most ``GRAD_PARTIAL_FLOATS`` floats (512 KB;
+    ``WARP_GRAD_PARTIAL_FLOATS``, 4 MB, for the warp kernel at m > 16).
     A function of the rank range and the shape only, never of B."""
-    return max(1, min(-(-count // tile), GRAD_MAX_BLOCKS,
-                      GRAD_PARTIAL_FLOATS // (m * n)))
+    budget = (GRAD_PARTIAL_FLOATS if m <= CUDA_MAX_M
+              else WARP_GRAD_PARTIAL_FLOATS)
+    return max(1, min(-(-count // tile), GRAD_MAX_BLOCKS, budget // (m * n)))
 
 
 # ------------------------------------------------------------ plain versions

@@ -448,7 +448,14 @@ def _ab_variants():
                          ids=[f"{e}.{v}" for e, v, _ in _ab_variants()])
 def test_kernel_ab_variants_fit_the_sources(experiment, variant, edits):
     """Each A/B variant of ``kernel_ab.py`` edits text that occurs exactly
-    once in the checkout's kernel sources, and changes it."""
-    for fn, old, new in edits:
-        assert (_build.CSRC / fn).read_text().count(old) == 1, (fn, old)
-        assert old != new
+    once in the checkout's kernel sources (exactly one of an edit's
+    alternatives, which also fit a baseline's sources), and changes it;
+    or sets a launch constant that ``radic_fused`` has to another value."""
+    from repro_torch.kernels import kernel_ab
+    for fn, alts in kernel_ab._source_edits(edits):
+        text = (_build.CSRC / fn).read_text()
+        hits = [old for old in alts if text.count(old) == 1]
+        assert len(hits) == 1, (fn, list(alts))
+        assert all(old != new for old, new in alts.items())
+    for _, name, value in (e for e in edits if e[0] == kernel_ab.PY):
+        assert getattr(rf, name) != value, name

@@ -20,6 +20,7 @@ from repro_torch.kernels import radic_fused as rf  # noqa: E402
 from repro_torch.launch.det_queue import DetQueue  # noqa: E402
 
 WIDE = [(17, 20), (20, 22), (24, 26), (33, 33)]
+SMEM_PER_BLOCK = 232448  # the most shared memory a block may use (227 KB)
 # (q_start, count) as fractions of C(n, m): the full range and two parts
 RANGES = [None, (0.0, 0.5), (0.3, 0.4)]
 
@@ -270,3 +271,34 @@ def test_warp_successor_walk_reproduces_unranking(n, m, q_start, count):
     valid = offs[None, :] < length[:, None]
     want = unrank_torch((first[:, None] + offs)[valid], n, m, table)
     assert torch.equal(walk[valid], want)
+
+
+@pytest.mark.parametrize("m", range(17, 34))
+def test_warp_kernels_shared_memory_fits_a_block(m):
+    """The twins of the warp kernels' shared memory per block (held to the
+    built library's own counts by chip_smoke.py phase 1) stay within the
+    227 KB a block may use at every n the int32 table allows and the
+    widest batch slice."""
+    for n in range(m, 34):
+        assert rf.warp_partial_smem_bytes(16, m, n) <= SMEM_PER_BLOCK
+    assert rf.warp_grad_tile(m) in (8, 16, 32)
+    assert rf.warp_grad_tile(m) * m * m * 4 <= 48 * 1024 \
+        or rf.warp_grad_tile(m) == 8
+    assert rf.warp_grad_smem_bytes(m) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("count,m,n", [(1, 17, 17), (18, 17, 18),
+                                       (230_230, 20, 26), (593_775, 24, 30),
+                                       (237_336, 28, 33), (1, 33, 33),
+                                       (10 ** 7, 17, 33)])
+def test_warp_grad_grid_is_a_function_of_the_shape(count, m, n):
+    """K3's warp kernel (m > 16) has its own partials budget: its block
+    count depends on (count, m, n) and its tile only, never on B, is never
+    below the register kernel's budget, and each matrix's partials stay
+    within 4 MB."""
+    tile = rf.warp_grad_tile(m)
+    g = rf.grad_grid_blocks(count, m, n, tile)
+    assert 1 <= g <= min(-(-count // tile), rf.GRAD_MAX_BLOCKS)
+    assert g * m * n <= rf.WARP_GRAD_PARTIAL_FLOATS <= (4 << 20) // 4
+    assert g >= min(-(-count // tile), rf.GRAD_PARTIAL_FLOATS // (m * n))
+

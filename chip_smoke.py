@@ -60,25 +60,36 @@ per source, all at once) and runs these phases, each printing its lines:
    per call and, for K6, ``torch.linalg.det``'s device time; also K5 on
    every rank of C(32, 8), K6 at (2**20, 8, 8) in float32 and float64, and
    the warp kernels: K1, K4 at (3, 20, 30), K2 at (20, 30), K3 at
-   (3, 20, 26) and K6 at (65536, 32, 32).  It runs last, after 10 and 11,
-   so that every kernel it times has passed its checks;
+   (3, 20, 26) and K6 at (65536, m, m), m = 32, 17 and 24; K6 above
+   m = 32 at (16384, 33, 33) and (4096, 64, 64) in float32 (the warp
+   kernel at two rows a lane) and at (256, 250, 250) in float64 (the
+   block kernel on a global copy).
+   It runs last, after 10 and 11, so that every kernel it times has
+   passed its checks;
 10. the wide path (m >= 17): the warp kernels of K1, K2 and K4 against
    float64 plain at (3, 17, 20), (2, 20, 22), (3, 24, 26), (1, 33, 33),
    (2, 32, 33) and ranges of (3, 20, 30), K4 == K1, the B = 1 entry ==
    K1's slot, batch-slot independence and repeats bit for bit; K3 on the
    same shapes and on stacks with a duplicate or a zero column at
    (3, 20, 24), each run twice; K1, K4 and K3 at every m = 17..33 with
-   n = m and m + 1 (but the table's (33, 34)); K6 at m = 17, 32, 33, 64
-   and 250 in
-   float32 and float64 (warp, block in shared memory, block on a global
-   copy), singular matrices exactly 0, a row swap an exact negation; NaN
-   input (a NaN column or row for K1 and K3 at (3, 20, 24), K6 at m = 20,
-   40 and 250) answered NaN as the plain versions do, its batch
-   neighbours as alone, and a clean launch after it;
+   n = m and m + 1 (but the table's (33, 34)); K6 at m = 17, 24, 32, 33,
+   64 and 250 in float32 and float64 (one row a lane, two rows a lane,
+   the block kernel with its matrix on a global copy), each m's launches
+   counted for its row of the kernels line, singular matrices exactly 0,
+   a row swap an exact negation, and at every m = 17..70 against float64
+   plain; the block kernel with its side arrays in global memory too, at
+   odd m (1703 in float64, 3215 in float32; rows of matrices near the
+   identity in a random order);
+   NaN input (a NaN column or row for K1 and K3 at (3, 20, 24), K6 at
+   m = 20, 40 and 250) answered NaN as the plain versions do, its batch
+   neighbours as alone, and a clean launch after it; m = 0 through
+   ``radic_det``, ``radic_det_batched``, their gradients, the by-grid
+   entry and a ``cuda`` plan: 1.0 (gradients of shape (0, n)) with no
+   launch counted;
 11. the wide cell: ``det_serve.main`` on 256 requests up to (24, 26),
    values and then ``--grad-frac 0.25``, both ``--verify``, launches equal
-   to dispatches and the warp kernels launched; then an uncounted pass of
-   the values cell under ``torch.profiler``.
+   to dispatches and the warp kernels launched; then uncounted passes of
+   the values and of the mixed cell under ``torch.profiler``.
 
 Every check holds ``|got - want| <= 2e-3 * max(1, |want|)`` (the
 reference's tolerance against its oracles), ``want`` from the plain
@@ -109,8 +120,9 @@ PEAK_BYTES = 3.35e12
 # 32-bit integer operations issue at half the float32 rate on Hopper (64
 # INT32 lanes per SM and clock against 128 FP32; architecture white paper)
 PEAK_INT32_OPS = PEAK_F32_FLOPS / 2
-# float64 outside the tensor cores: half the float32 rate (data sheet)
-PEAK_F64_FLOPS = 34e12
+# float64 on the tensor cores (DMMA), the card's peak for the type (data
+# sheet); elimination outside them runs at half that, 34 TFLOP/s
+PEAK_F64_FLOPS = 67e12
 SERVE_ARGS = ["--num", "512", "--max-m", "8", "--max-n", "32",
               "--max-batch", "64"]
 
@@ -262,7 +274,7 @@ class Errors:
     def __init__(self):
         self.abs = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6",
                                      "K1 wide", "K2 wide", "K3 wide",
-                                     "K4 wide", "K6 wide")}
+                                     "K4 wide", "K6 wide", "K6 above 32")}
 
     def hold(self, kernel: str, label: str, got, want,
              tol: float = TOL, track: bool = True) -> None:
@@ -291,8 +303,13 @@ def ptxas_summary(log: str) -> list[str]:
             size, rest = int(hit.group(1)), hit.group(2)
             fam = rest[:size]
             args = re.match(r"I((?:Li\d+E|Lb[01]E|[fd])+)E", rest[size:])
+            # K1's flag says whether a block stages its slice; K6 wide's
+            # whether m is the instance's own or taken at run time
+            flag = ({"0": "m run time", "1": "exact"}
+                    if fam.startswith("minor_det_warp")
+                    else {"0": "global", "1": "staged"})
             inst = "<" + ",".join(
-                a or {"0": "global", "1": "staged"}.get(b) or c
+                a or flag.get(b) or c
                 for a, b, c in re.findall(r"Li(\d+)E|Lb([01])E|([fd])",
                                           args.group(1))) + ">" \
                 if args else ""
@@ -981,6 +998,23 @@ def well_conditioned(B: int, m: int, gen: torch.Generator) -> torch.Tensor:
     return Q * torch.exp(d - 0.5)
 
 
+def permuted_near_identity(B: int, m: int,
+                           gen: torch.Generator) -> torch.Tensor:
+    """B float64 matrices P (I + G / (2 sqrt(m))): G Gaussian, P a random
+    row order.  Partial pivoting swaps rows at nearly every step, and
+    every pivot stays near 1, so the running product of the pivots, which
+    det_ge takes in step order, stays in float32's range at any m (on
+    ``well_conditioned``'s Q diag(d) the early pivots are far below 1, and
+    at m in the thousands that product leaves float32's range, in the
+    plain version as in the kernel)."""
+    eye = torch.eye(m, device="cuda", dtype=torch.float64)
+    N = eye + torch.randn(B, m, m, device="cuda", generator=gen,
+                          dtype=torch.float64) / (2 * m ** 0.5)
+    order = torch.stack([torch.randperm(m, device="cuda", generator=gen)
+                         for _ in range(B)])
+    return torch.gather(N, 1, order[:, :, None].expand(B, m, m))
+
+
 def swapped_rows(m: int) -> torch.Tensor:
     """The row order of a matrix with rows 0 and 1 exchanged."""
     swap = torch.arange(m, device="cuda")
@@ -1002,6 +1036,13 @@ WIDE_SHAPES = [(3, 17, 20), (2, 20, 22), (3, 24, 26), (1, 33, 33),
 # straddling runs, tiles (64 ranks) and blocks, and its last ranks
 WIDE_RANGES = [(0, 1), (3, 6), (60, 9), (1000, 5000), (123_456, 20_000),
                (30_045_015 - 3000, 3000)]
+
+
+# K6's m of phase 10 whose launches are counted, each for the row of the
+# kernels line timed at that m (phase 9), and the sources above m = 32
+K6_COUNTED_M = (17, 24, 32, 33, 64, 250)
+K6_ABOVE_32_SOURCES = [(33, "minor_det_warp.cuh"),
+                       (64, "minor_det_warp.cuh"), (250, "minor_det.cu")]
 
 
 def phase_wide(errs: Errors, gen: torch.Generator) -> dict:
@@ -1117,13 +1158,15 @@ def phase_wide(errs: Errors, gen: torch.Generator) -> dict:
     print("wide K3: repeats, slot 37/64 vs alone and the B = 1 entry "
           "bit-identical")
 
-    # K6 for every m: the warp kernel (17, 32), the block kernel in shared
-    # memory (33, 64) and on a global copy (250); well-conditioned
+    # K6 for every m: the warp kernel at one row a lane (17, 24, 32) and
+    # two (33, 64), the block kernel on a global copy (250), each m's
+    # launches counted for its row of the kernels line; well-conditioned
     # matrices (|det| between e^-m/2 and e^m/2, condition at most e), so
     # float32 is held relative to |det| at every m; singular (equal rows,
     # a zero column) and row-swapped matrices
-    for m in (17, 32, 33, 64, 250):
+    for m in K6_COUNTED_M:
         B = 64 if m <= 64 else 8
+        before = minor_det_cuda.launches
         M = well_conditioned(B, m, gen)
         M[1::4, 5] = M[1::4, 2]
         M[2::4] = M[0::4][:, swapped_rows(m)]
@@ -1134,7 +1177,8 @@ def phase_wide(errs: Errors, gen: torch.Generator) -> dict:
             torch.cuda.synchronize()
             check(got.dtype == dt, f"K6 m={m}: {got.dtype} out")
             if dt == torch.float32:
-                errs.hold("K6 wide", f"m={m} float32", got, want, tol=tol)
+                errs.hold("K6 wide" if m <= 32 else "K6 above 32",
+                          f"m={m} float32", got, want, tol=tol)
                 r = rel_to_det(got, want, [0, 2])
                 print(f"K6 wide m={m} float32: relative err {r:.3e} "
                       "(tol 1e-3)")
@@ -1148,11 +1192,40 @@ def phase_wide(errs: Errors, gen: torch.Generator) -> dict:
                   f"K6 m={m} {dt}: singular matrices must give exactly 0")
             check(torch.equal(got[2::4], -got[0::4]),
                   f"K6 m={m} {dt}: a row swap must negate exactly")
-    launches["K6 wide"] = minor_det_cuda.wide_launches
-    check(minor_det_cuda.wide_launches == 10, "K6's wide kernels did not "
-          "launch ten times")
-    print("K6 wide: m = 17, 32, 33, 64, 250 in float32 and float64; "
-          "singular give 0, a row swap negates")
+        launches[f"K6 m={m}"] = minor_det_cuda.launches - before
+    check(minor_det_cuda.wide_launches == 2 * len(K6_COUNTED_M),
+          "K6's wide kernels did not launch twice at each m")
+    print(f"K6 wide: m = {K6_COUNTED_M} in float32 and float64; singular "
+          "give 0, a row swap negates")
+    # the block kernel with the panel's multipliers in global memory too
+    # (past 227 KB of them: m >= 1702 in float64, 3215 in float32), at an
+    # odd m, where a matrix's copy is no whole number of 16-byte vectors
+    for m, dt, tol in ((1703, torch.float64, 1e-9),
+                       (3215, torch.float32, 1e-3)):
+        M = permuted_near_identity(2, m, gen)
+        want = minor_det_plain(M)
+        got = ops.minor_det(M.to(dt))
+        torch.cuda.synchronize()
+        r = ((got.double() - want).abs() / want.abs()).max().item()
+        print(f"K6 (2,{m},{m}) {str(dt)[6:]} (side arrays in global "
+              f"memory): relative err {r:.3e} (tol {tol:g})")
+        check(r <= tol, f"K6 m={m} {dt}: relative err {r:.3e} > {tol:g}")
+    # every m of the warp kernels (one instance a value at m <= 33; the
+    # register widths 40..64 of minor_det_warp_hi.cu and _top.cu take m at
+    # run time)
+    # and of the block kernel just past them, in both types, relative to
+    # |det| (well-conditioned matrices)
+    worst = {}
+    for m in range(17, 71):
+        M = well_conditioned(4, m, gen)
+        want = minor_det_plain(M)
+        for dt, tol in ((torch.float32, 1e-3), (torch.float64, 1e-9)):
+            got = ops.minor_det(M.to(dt))
+            r = ((got.double() - want).abs() / want.abs()).max().item()
+            worst[str(dt)[6:]] = max(worst.get(str(dt)[6:], 0.0), r)
+            check(r <= tol, f"K6 m={m} {dt}: relative err {r:.3e} > {tol:g}")
+    print(f"K6 at every m = 17..70: largest relative err {worst} (tol 1e-3 "
+          "float32, 1e-9 float64)")
     phase_wide_every_m(errs, gen, plain64, grad64)
     phase_wide_nan(errs, gen, plain64, grad64)
     return launches
@@ -1251,6 +1324,51 @@ def phase_wide_nan(errs: Errors, gen: torch.Generator, plain64,
 
 WIDE_SERVE_ARGS = ["--num", "256", "--max-m", "24", "--max-n", "26",
                    "--max-batch", "64"]
+
+
+def phase_empty_minor() -> None:
+    """m = 0 on the card: the ``cuda`` entries answer the empty minor's
+    determinant, 1.0 (and a gradient of shape (0, n)), as the float64
+    oracle does, before any table, launch or build; no launch counted."""
+    from repro_torch.core import radic_det, radic_det_batched
+    from repro_torch.core.engine import DetEngine
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+
+    reset_launch_counts()
+    A = torch.zeros(0, 5, device="cuda", requires_grad=True)
+    d = radic_det(A, backend="cuda")
+    (g,) = torch.autograd.grad(d, A)
+    check(d.shape == () and float(d.detach()) == 1.0,
+          f"m = 0: radic_det gave {d}")
+    check(g.shape == (0, 5), f"m = 0: radic_det's gradient {g.shape}")
+    As = torch.zeros(3, 0, 5, device="cuda", requires_grad=True)
+    d = radic_det_batched(As, backend="cuda")
+    (g,) = torch.autograd.grad(d.sum(), As)
+    check(torch.equal(d.detach(), torch.ones(3, device="cuda")),
+          f"m = 0: radic_det_batched gave {d}")
+    check(g.shape == (3, 0, 5), f"m = 0: the batched gradient {g.shape}")
+    X = torch.zeros(2, 0, 5, device="cuda")
+    for name, got, shape in [
+            ("radic_det_cuda", ops.radic_det_cuda(X[0]), ()),
+            ("radic_det_batched_cuda", ops.radic_det_batched_cuda(X), (2,)),
+            ("radic_det_batched_cuda_bygrid",
+             ops.radic_det_batched_cuda_bygrid(X), (2,)),
+            ("DetEngine.plan(0, 5)", DetEngine().plan(
+                0, 5, backend="cuda", device="cuda")(X), (2,))]:
+        check(got.shape == shape and bool((got == 1.0).all()),
+              f"m = 0: {name} gave {got}")
+    for name, got, shape in [
+            ("radic_det_grad_cuda", ops.radic_det_grad_cuda(X[0], 1.0),
+             (0, 5)),
+            ("radic_det_batched_grad_cuda",
+             ops.radic_det_batched_grad_cuda(X, torch.ones(2, device="cuda")),
+             (2, 0, 5))]:
+        check(got.shape == shape, f"m = 0: {name} gave {got.shape}")
+    launched = launch_counts()
+    check(not any(launched.values()), f"m = 0 launched a kernel: {launched}")
+    print("m = 0: radic_det, radic_det_batched, their gradients, the "
+          "by-grid entry and a cuda plan answer 1.0 (gradients (0, 5)) "
+          "with no launch")
 
 
 def phase_wide_serve() -> dict:
@@ -1457,13 +1575,28 @@ def phase_times(gen: torch.Generator, serve: dict, k2_big,
                min_s=0),
            roofline(total * B * grad_flops(m),
                     4 * (2 * B * m * n + B + (n + 1) * (m + 1))))
-    B, m = 65536, 32
-    M = torch.randn(B, m, m, device="cuda", generator=gen) / m ** 0.5
-    record("K6 wide", f"({B},{m},{m}) float32", (B, m, m),
-           lambda: ops.minor_det(M),
-           cuda_ms(lambda: minor_det_plain(M), min_reps=1, min_s=0),
-           roofline(B * det_flops(m), 4 * (B * m * m + B)),
-           library=lambda: torch.linalg.det(M))
+    B = 65536
+    for m, key in ((32, "K6 wide"), (17, "K6 wide m=17"),
+                   (24, "K6 wide m=24")):
+        M = torch.randn(B, m, m, device="cuda", generator=gen) / m ** 0.5
+        record(key, f"({B},{m},{m}) float32", (B, m, m),
+               lambda: ops.minor_det(M),
+               cuda_ms(lambda: minor_det_plain(M), min_reps=1, min_s=0),
+               roofline(B * det_flops(m), 4 * (B * m * m + B)),
+               library=lambda: torch.linalg.det(M))
+    # K6 above m = 32: at m = 33 (71 MB), at m = 64 (a matrix in shared
+    # memory) and on the global copy at m = 250 in float64
+    for B, m, dt in ((16384, 33, torch.float32), (4096, 64, torch.float32),
+                     (256, 250, torch.float64)):
+        M = (torch.randn(B, m, m, device="cuda", generator=gen)
+             / m ** 0.5).to(dt)
+        size = M.element_size()
+        record(f"K6 m={m}", f"({B},{m},{m}) {str(dt)[6:]}", (B, m, m),
+               lambda: ops.minor_det(M),
+               cuda_ms(lambda: minor_det_plain(M), min_reps=1, min_s=0),
+               roofline(B * det_flops(m), size * (B * m * m + B),
+                        PEAK_F32_FLOPS if size == 4 else PEAK_F64_FLOPS),
+               library=lambda: torch.linalg.det(M))
     return times
 
 
@@ -1501,9 +1634,11 @@ def main() -> int:
     k456 = phase_k456(errs, gen)
     done("8 K4 K5 K6")
     wide = phase_wide(errs, gen)
+    phase_empty_minor()
     done("10 wide kernels")
     wide_serve = phase_wide_serve()
     serve_trace(base=WIDE_SERVE_ARGS)
+    serve_trace(("--grad-frac", "0.25"), base=WIDE_SERVE_ARGS)
     done("11 wide serving")
     times = phase_times(gen, serve, k2["big"], autograd["A"])
     done("9 times")
@@ -1540,8 +1675,13 @@ def main() -> int:
              wide_serve["K3 wide"], "K3 wide"),
             ("radic_batched_partial_bygrid_cuda", "K4 wide", "radic_warp.cu",
              "radic_fused.py:92", wide["K4 wide"], "K4 wide"),
-            ("minor_det_cuda", "K6 wide", "minor_det_warp.cu",
-             "minor_det.py:23", wide["K6 wide"], "K6 wide")]:
+            *(("minor_det_cuda", "K6 wide", "minor_det_warp.cuh",
+               "minor_det.py:23", wide[f"K6 m={m}"], timed)
+              for m, timed in ((32, "K6 wide"), (17, "K6 wide m=17"),
+                               (24, "K6 wide m=24"))),
+            *(("minor_det_cuda", "K6 above 32", source, "minor_det.py:23",
+               wide[f"K6 m={m}"], f"K6 m={m}")
+              for m, source in K6_ABOVE_32_SOURCES)]:
         t = times[timed]
         check(launches > 0, f"{name} was not launched on its path")
         rows.append({"name": name, "route": "cuda", "source": csrc + source,

@@ -6,7 +6,7 @@ launch (:mod:`repro_torch.kernels._build`); importing this package needs
 no GPU and no compiler."""
 
 from . import ops, ref
-from ._launch import reset_launch_counts
+from ._launch import launch_counts, reset_launch_counts
 from .minor_det import minor_det_cuda, minor_det_plain
 from .radic_fused import (radic_batched_grad_partial_cuda,
                           radic_batched_grad_partial_plain,
@@ -17,8 +17,9 @@ from .radic_fused import (radic_batched_grad_partial_cuda,
                           radic_partial_plain)
 from .unrank_kernel import unrank_cuda, unrank_plain
 
-__all__ = ["ops", "ref", "reset_launch_counts", "minor_det_cuda",
-           "minor_det_plain", "radic_batched_grad_partial_cuda",
+__all__ = ["ops", "ref", "launch_counts", "reset_launch_counts",
+           "minor_det_cuda", "minor_det_plain",
+           "radic_batched_grad_partial_cuda",
            "radic_batched_grad_partial_plain",
            "radic_batched_partial_bygrid_cuda", "radic_batched_partial_cuda",
            "radic_batched_partial_plain", "radic_grad_partial_cuda",

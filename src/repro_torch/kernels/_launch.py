@@ -14,8 +14,8 @@ import threading
 
 import torch
 
-__all__ = ["counted", "count", "reset_launch_counts", "require_cuda",
-           "check_rc"]
+__all__ = ["counted", "count", "reset_launch_counts", "launch_counts",
+           "require_cuda", "check_rc"]
 
 _lock = threading.Lock()
 _wrappers: list = []
@@ -42,6 +42,12 @@ def reset_launch_counts() -> None:
         for wrapper in _wrappers:
             wrapper.launches = 0
             wrapper.wide_launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Every registered wrapper's launch count, by its name."""
+    with _lock:
+        return {wrapper.__name__: wrapper.launches for wrapper in _wrappers}
 
 
 def require_cuda(t: torch.Tensor) -> None:

@@ -211,6 +211,32 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src,
   }
 }
 
+// One element from global to shared memory (cp.async, completed by
+// copy_wait before a barrier).
+template <typename T>
+__device__ __forceinline__ void copy_async_elem(T* dst, const T* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (sizeof(T) == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+  }
+#else
+  *dst = *src;
+#endif
+}
+
+// Close the cp.async copies issued so far into one group (copy_wait
+// completes every group).
+__device__ __forceinline__ void copy_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
 __device__ __forceinline__ void copy_wait() {
 #if defined(__CUDA_ARCH__)
   asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");

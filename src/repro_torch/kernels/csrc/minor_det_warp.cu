@@ -1,46 +1,29 @@
-// K6 (minor_det.cu) at 17 <= m <= 32: one warp per matrix, lane i
-// holding row i, det_ge's steps by warp_det (warp.cuh).  Its own
-// translation unit, so that nvcc compiles these 32 instances beside the
-// others.
-#include <cuda_runtime.h>
-
-#include "warp.cuh"
+// K6 at 17 <= m <= 33: an instance of minor_det_warp.cuh for each m.
+// Its own translation unit, so that nvcc compiles these instances beside
+// the others.
+#include "minor_det_warp.cuh"
 
 namespace radic {
 
-constexpr int kDetWarps = 8;  // matrices (warps) per block
-
-template <int M, typename T>
-__global__ void __launch_bounds__(32 * kDetWarps)
-    minor_det_warp_kernel(const T* __restrict__ mats, int B,
-                          T* __restrict__ out) {
-  const long long b =
-      static_cast<long long>(blockIdx.x) * kDetWarps + (threadIdx.x >> 5);
-  if (b >= B) return;  // a whole warp
-  const int lane = threadIdx.x & 31;
-  const T* src = mats + b * (M * M);
-  T a[1][M];
-#pragma unroll
-  for (int j = 0; j < M; ++j) a[0][j] = lane < M ? src[lane * M + j] : T(0);
-  const T d = warp_det<M>(a, lane);
-  if (lane == 0) out[b] = d;
-}
+static std::atomic<bool> det_warp_opted[2][kWarpMaxM + 1][kMaxDevices];
+// blocks of each instance an SM holds, by device (0: not asked yet)
+static std::atomic<int> det_warp_fit[2][kWarpMaxM + 1][kMaxDevices];
 
 template <typename T>
 cudaError_t launch_warp_any(const T* mats, int B, int m, T* out,
                             cudaStream_t s) {
-  const unsigned grid = static_cast<unsigned>(
-      (static_cast<long long>(B) + kDetWarps - 1) / kDetWarps);
+  constexpr int d = sizeof(T) == 8;
   switch (m) {
-#define DET_WARP_CASE(MM)                                                   \
-  case MM:                                                                  \
-    minor_det_warp_kernel<MM, T><<<grid, 32 * kDetWarps, 0, s>>>(mats, B,   \
-                                                                 out);      \
-    return cudaGetLastError();
+#define DET_WARP_CASE(MM)                                              \
+  case MM:                                                             \
+    return launch_warp_m<MM, true, T>(mats, B, MM, out,                \
+                                      det_warp_opted[d][MM],           \
+                                      det_warp_fit[d][MM], s);
     DET_WARP_CASE(17) DET_WARP_CASE(18) DET_WARP_CASE(19) DET_WARP_CASE(20)
     DET_WARP_CASE(21) DET_WARP_CASE(22) DET_WARP_CASE(23) DET_WARP_CASE(24)
     DET_WARP_CASE(25) DET_WARP_CASE(26) DET_WARP_CASE(27) DET_WARP_CASE(28)
     DET_WARP_CASE(29) DET_WARP_CASE(30) DET_WARP_CASE(31) DET_WARP_CASE(32)
+    DET_WARP_CASE(33)
 #undef DET_WARP_CASE
   }
   return cudaErrorInvalidValue;

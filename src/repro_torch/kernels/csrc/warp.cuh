@@ -1,10 +1,10 @@
-// Warp-level routines of the wide path (17 <= m <= 33; K6 up to m = 32).
+// Warp-level routines of the wide path (17 <= m <= 33; K6 up to m = 64).
 //
 // The register path (common.cuh) keeps one m x m minor in one thread's
 // registers, which stops at m = 16: at m = 17..33 a minor is 289..1,089
 // floats against 255 registers a thread.  Here one warp owns one matrix:
-// lane i holds row i (and row i + 32 where m = 33, the only m with two
-// rows a lane).  Rows never move between lanes.  det_ge's row swap
+// lane i holds row i (and row i + 32 where m > 32: m = 33 in the Radic
+// kernels, up to 64 in K6).  Rows never move between lanes.  det_ge's row swap
 // becomes an exchange of two rows' places in the elimination order
 // (`place`), so every step is det_ge's step on the same values:
 //   * the pivot search is a warp reduction of (|a[i][k]|, place) over the
@@ -12,8 +12,10 @@
 //     magnitudes, the smaller place: det_ge's strict '>' keeps the first
 //     (a non-negative float orders as its bits, so it compares integers:
 //     in float32 two redux instructions, a max of the bits, then a min of
-//     the places that hold it).  A NaN counts as +inf below place k and
-//     above every magnitude at place k, so every step has a winner
+//     the places that hold it; in float64 three, the high word's max,
+//     the low word's among its holders, then the places').  A NaN counts
+//     as +inf below place k and above every magnitude at place k, so
+//     every step has a winner
 //     (the row at place k, eligible and of the smallest key, wins every
 //     tie); on finite input the pivots are det_ge's.  A NaN among the
 //     rows makes the determinant NaN whichever row is the pivot, as in
@@ -39,6 +41,34 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // Largest m of the wide Radic kernels, and their largest n: the int32
 // table bounds n <= 33 for every m >= 17.
 constexpr int kWarpMaxM = 33;
+// Largest m of K6's warp kernels (two rows a lane), and of the first of
+// their two units at m > 33
+constexpr int kDetWarpMaxM = 64;
+constexpr int kDetHiMaxM = 48;
+
+// T's 16-byte vector, for loads of four floats or two doubles at once
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+  __device__ static void unpack(const float4& v, float* t) {
+    t[0] = v.x;
+    t[1] = v.y;
+    t[2] = v.z;
+    t[3] = v.w;
+  }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+  __device__ static void unpack(const double2& v, double* t) {
+    t[0] = v.x;
+    t[1] = v.y;
+  }
+};
 
 // Rows a lane holds: ceil(M / 32).
 template <int M>
@@ -77,6 +107,54 @@ __device__ __forceinline__ decltype(abs_bits(T())) inf_bits() {
   return sizeof(T) == 4 ? 0x7f800000ull : 0x7ff0000000000000ull;
 }
 
+// Step k's pivot search over the rows this warp holds, rows m and past
+// left out (m <= M): the (|a[.][k]|, place) reduction of the header.
+// Returns the winner's key, place * 64 + row, in every lane.
+template <int M, typename T>
+__device__ __forceinline__ int warp_pivot_search(
+    const T (&a)[warp_rows<M>()][M], const int (&place)[warp_rows<M>()],
+    int lane, int k, int m) {
+  constexpr int R = warp_rows<M>();
+  // this lane's best eligible row (bits, key); a lane with none keeps
+  // (0, 1 << 30), which the row at place k always beats
+  decltype(abs_bits(T())) best = 0;
+  int key = 1 << 30;
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    if (warp_row(lane, s) < m && place[s] >= k) {
+      const auto cap = place[s] == k ? ~decltype(best)(0) : inf_bits<T>();
+      const auto u = abs_bits(a[s][k]);
+      const int kk = place[s] * 64 + warp_row(lane, s);
+      if (s == 0) {
+        best = u < cap ? u : cap;
+        key = kk;
+      } else {
+        pivot_max(best, key, u < cap ? u : cap, kk);
+      }
+    }
+  }
+  if constexpr (sizeof(T) == 4) {
+    // two warp reductions: the largest bits, then the smallest key
+    // among their holders
+    const unsigned top = __reduce_max_sync(kFullMask, best);
+    key = static_cast<int>(__reduce_min_sync(
+        kFullMask, best == top ? static_cast<unsigned>(key) : ~0u));
+  } else {
+    // the 64 bits in two halves: the largest high word, the largest low
+    // word among its holders, then the smallest key among theirs (three
+    // reductions, the same winner as a butterfly of pivot_max)
+    const unsigned hi = static_cast<unsigned>(best >> 32);
+    const unsigned lo = static_cast<unsigned>(best);
+    const unsigned top_hi = __reduce_max_sync(kFullMask, hi);
+    const unsigned top_lo =
+        __reduce_max_sync(kFullMask, hi == top_hi ? lo : 0u);
+    key = static_cast<int>(__reduce_min_sync(
+        kFullMask, hi == top_hi && lo == top_lo ? static_cast<unsigned>(key)
+                                                : ~0u));
+  }
+  return key;
+}
+
 // Gaussian elimination with partial pivoting of the M x M matrix whose
 // rows this warp holds (a[s][j] = row warp_row(lane, s), column j; rows
 // past M-1 are ignored).  Returns the pivots' product in every lane, and
@@ -100,38 +178,7 @@ __device__ __forceinline__ T warp_lu(T (&a)[warp_rows<M>()][M],
   zero_pivot = false;
 #pragma unroll
   for (int k = 0; k < M; ++k) {
-    // this lane's best eligible row (bits, key); a lane with none keeps
-    // (0, 1 << 30), which the row at place k always beats
-    decltype(abs_bits(T())) best = 0;
-    int key = 1 << 30;
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-      if (warp_row(lane, s) < M && place[s] >= k) {
-        const auto cap = place[s] == k ? ~decltype(best)(0) : inf_bits<T>();
-        const auto u = abs_bits(a[s][k]);
-        const int kk = place[s] * 64 + warp_row(lane, s);
-        if (s == 0) {
-          best = u < cap ? u : cap;
-          key = kk;
-        } else {
-          pivot_max(best, key, u < cap ? u : cap, kk);
-        }
-      }
-    }
-    if constexpr (sizeof(T) == 4) {
-      // two warp reductions: the largest bits, then the smallest key
-      // among their holders
-      const unsigned top = __reduce_max_sync(kFullMask, best);
-      key = static_cast<int>(__reduce_min_sync(
-          kFullMask, best == top ? static_cast<unsigned>(key) : ~0u));
-    } else {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const auto ob = __shfl_xor_sync(kFullMask, best, off);
-        const int ok = __shfl_xor_sync(kFullMask, key, off);
-        pivot_max(best, key, ob, ok);
-      }
-    }
+    const int key = warp_pivot_search<M>(a, place, lane, k, M);
     const int p = key >> 6;          // the winner's place
     const int src = key & 63;        // and its row
     if (p != k) {
@@ -259,10 +306,19 @@ cudaError_t launch_grad_warp(int m, int grid, int B, cudaStream_t s,
                              float* partials);
 int warp_grad_tile_of(int m);
 int warp_grad_smem_bytes(int m);
-// minor_det_warp.cu: K6 at 17 <= m <= 32.
+// minor_det_warp.cu: K6 at 17 <= m <= 33; minor_det_warp_hi.cu: K6 at
+// 34 <= m <= kDetHiMaxM; minor_det_warp_top.cu: up to kDetWarpMaxM.
 cudaError_t launch_minor_det_warp(const float* mats, int B, int m,
                                   float* out, cudaStream_t s);
 cudaError_t launch_minor_det_warp(const double* mats, int B, int m,
                                   double* out, cudaStream_t s);
+cudaError_t launch_minor_det_warp_hi(const float* mats, int B, int m,
+                                     float* out, cudaStream_t s);
+cudaError_t launch_minor_det_warp_hi(const double* mats, int B, int m,
+                                     double* out, cudaStream_t s);
+cudaError_t launch_minor_det_warp_top(const float* mats, int B, int m,
+                                      float* out, cudaStream_t s);
+cudaError_t launch_minor_det_warp_top(const double* mats, int B, int m,
+                                      double* out, cudaStream_t s);
 
 }  // namespace radic

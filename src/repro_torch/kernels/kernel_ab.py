@@ -83,7 +83,7 @@ K6_SHAPES = [("K6", 1 << 20, 8, 8), ("K6d", 1 << 20, 8, 8),
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 # kernels redesigned at m > 16 since the baseline: their bits may differ
 # from the baseline's
-REDESIGNED = ("K3",)
+REDESIGNED = ()
 # The warp kernels' phases (csrc/warp.cuh, csrc/radic_warp_grad.cuh) and
 # the edits that take each out, as {old: new} for the sources of the
 # earlier K3 (X and Z through shared memory) and of this one, so that the
@@ -124,8 +124,36 @@ _SEARCH_INLINE = """    // this lane's best eligible row (bits, key); a lane wit
       }
     }
 """
+# the search as a function of its own (warp_pivot_search), rows past m
+# left out, and float64's three reductions in place of a butterfly
+_SEARCH_FN = _SEARCH_INLINE.replace("\n    ", "\n  ").replace(
+    "  if (warp_row(lane, s) < M && place[s] >= k) {",
+    "  if (warp_row(lane, s) < m && place[s] >= k) {")[2:]
+_SEARCH_FN_64 = """    // the 64 bits in two halves: the largest high word, the largest low
+    // word among its holders, then the smallest key among theirs (three
+    // reductions, the same winner as a butterfly of pivot_max)
+    const unsigned hi = static_cast<unsigned>(best >> 32);
+    const unsigned lo = static_cast<unsigned>(best);
+    const unsigned top_hi = __reduce_max_sync(kFullMask, hi);
+    const unsigned top_lo =
+        __reduce_max_sync(kFullMask, hi == top_hi ? lo : 0u);
+    key = static_cast<int>(__reduce_min_sync(
+        kFullMask, hi == top_hi && lo == top_lo ? static_cast<unsigned>(key)
+                                                : ~0u));
+"""
+_SEARCH_FN = _SEARCH_FN[:_SEARCH_FN.index("#pragma unroll\n    for (int off")] \
+    + _SEARCH_FN_64 + "  }\n"
 WARP_SEARCH = {
-    _SEARCH_INLINE: "    int key = k * 64 + k;  // diag: no search\n"}
+    _SEARCH_INLINE: "    int key = k * 64 + k;  // diag: no search\n",
+    _SEARCH_FN: "  int key = k * 64 + k;  // diag: no search\n"}
+# float64's search by the butterfly of shuffles it took before
+K6_SEARCH_64 = {_SEARCH_FN_64: """#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const auto ob = __shfl_xor_sync(kFullMask, best, off);
+      const int ok = __shfl_xor_sync(kFullMask, key, off);
+      pivot_max(best, key, ob, ok);
+    }
+"""}
 # the row's columns past the pivot from the lane's own row (the pivot
 # itself still broadcast, so that every lane takes the same branches)
 WARP_BCAST = {"      const T top = col(j);\n":
@@ -149,6 +177,50 @@ K3_SCATTER = {
 K3_BAR_NEXT = {
     "      if (bb > 0) __syncthreads();  // the owners are done with cof_s\n":
     "\n"}
+# K6 wide's global load (csrc/minor_det_warp.cu): each lane's row made
+# from the matrix's index and the lane instead (small integers, live
+# through the elimination, so nothing folds), which leaves the
+# elimination and the store of the result
+K6_LOAD = {
+    "  for (int j = 0; j < M; ++j) a[0][j] = lane < M ? src[lane * M + j] "
+    ": T(0);":
+    "  for (int j = 0; j < M; ++j)\n"
+    "    a[0][j] = lane < M ? T(static_cast<int>((b * 7 + lane * 13 + j * 5)"
+    " & 15) - 7) : T(0);  // diag: no load",
+    None: None}
+K6_STAGE = {
+    "        if (c < m) copy_async_elem(buf + r * (M | 1) + c, src + r * m + "
+    "c);":
+    "        if (c < m)\n"
+    "          buf[r * (M | 1) + c] = T(static_cast<int>((reinterpret_cast<"
+    "size_t>(src) / sizeof(T) + r * 7 + c * 13) & 15) - 7);  // diag: no "
+    "load",
+    None: None}
+K6_ROWS_LOAD = {
+    "      a[s][j] = r < m && j < m ? src[r * stride + j] : T(0);":
+    "      a[s][j] = r < m && j < m ? T(static_cast<int>((reinterpret_cast<"
+    "size_t>(src) / sizeof(T) + r * 13 + j * 5) & 15) - 7) : T(0);  // diag: "
+    "no load", None: None}
+# the block kernel's panel (csrc/minor_det.cu det_panel) of 8 or of 16
+# steps at every m, and its blocks an SM
+_K6_PANEL = "constexpr int det_panel(int m) { return m < 128 ? 8 : 16; }"
+K6_PANEL8 = {_K6_PANEL: "constexpr int det_panel(int m) { return 8; }"}
+K6_PANEL16 = {_K6_PANEL: "constexpr int det_panel(int m) { return 16; }"}
+
+
+def _k6_min_blocks(n: int) -> dict:
+    return {"__global__ void __launch_bounds__(kDetBlockThreads)\n"
+            "    minor_det_block_kernel(":
+            f"__global__ void __launch_bounds__(kDetBlockThreads, {n})\n"
+            "    minor_det_block_kernel("}
+
+
+# K6 wide's staging (csrc/minor_det_warp.cuh det_staged) at no m, and at
+# every m
+K6_ALL_DIRECT = {"constexpr bool det_staged() {\n":
+                 "constexpr bool det_staged() {\n  if (true) return false;\n"}
+K6_ALL_STAGED = {"constexpr bool det_staged() {\n":
+                 "constexpr bool det_staged() {\n  if (true) return true;\n"}
 K3_BAR_DONE = {
     f"{tail}      __syncthreads();\n": tail for tail in (
         "                            x_s + warp * M * S, perm_s + warp * M, "
@@ -198,6 +270,58 @@ EXPERIMENTS = {
     # against the baseline's)
     "wide": ({}, [("K1", 3, 20, 30), ("K4", 3, 20, 30), ("K3", 3, 20, 26),
                   ("K6", 65536, 32, 32), ("K6d", 65536, 32, 32)]),
+    # diagnostics of K6 wide (m = 17..32), each taking one phase out (with
+    # --baseline, of the baseline's kernel too): its global load, its
+    # pivot-row shuffles (the parent's in warp.cuh's warp_lu, this tree's
+    # in minor_det_warp.cuh) and its pivot search (warp.cuh, shared with
+    # K1 wide)
+    "k6_wide_diag": ({
+        "diag_no_load": [("minor_det_warp.cu", K6_LOAD),
+                         ("minor_det_warp.cuh", K6_STAGE),
+                         ("minor_det_warp.cuh", K6_ROWS_LOAD)],
+        "diag_no_bcast": [("warp.cuh", WARP_BCAST),
+                          ("minor_det_warp.cuh", {**WARP_BCAST, None: None})],
+        "diag_no_search": [("warp.cuh", WARP_SEARCH)],
+    }, [("K6", 65536, 32, 32), ("K6d", 65536, 32, 32),
+        ("K6", 65536, 17, 17)]),
+    # K6 wide in float32 (K6) and float64 (K6d) at m = 17, 20, 24, 28 and
+    # 32, 65,536 matrices a call (76 MB and more); no variants of their
+    # own (with --baseline, against the baseline's)
+    "k6_wide_m": ({}, [(kernel, 65536, m, m) for m in (17, 20, 24, 28, 32)
+                       for kernel in ("K6", "K6d")]),
+    # K6 wide's staging at no m and at every m (the choice by m and type,
+    # det_staged, against each), and float64's search by a butterfly of
+    # shuffles; at every m of one row a lane and at the two-rows-a-lane
+    # register widths
+    "k6_wide_moves": ({
+        "all_direct": [("minor_det_warp.cuh", K6_ALL_DIRECT)],
+        "all_staged": [("minor_det_warp.cuh", K6_ALL_STAGED)],
+        "search64_shfl": [("warp.cuh", K6_SEARCH_64)],
+    }, [*((kernel, 65536, m, m) for m in range(17, 33)
+          for kernel in ("K6", "K6d")),
+        ("K6", 16384, 33, 33), ("K6d", 16384, 33, 33),
+        *(("K6", 4096, m, m) for m in (40, 48, 56, 64)),
+        *(("K6d", 4096, m, m) for m in (40, 48))]),
+    # the block kernel (m > 64): its panel width by m against 8 and 16 at
+    # every m, and three or four blocks an SM forced (registers capped)
+    "k6_panel": ({
+        "panel8": [("minor_det.cu", K6_PANEL8)],
+        "panel16": [("minor_det.cu", K6_PANEL16)],
+        "min_blocks_3": [("minor_det.cu", _k6_min_blocks(3))],
+        "min_blocks_4": [("minor_det.cu", _k6_min_blocks(4))],
+    }, [("K6d", 1024, 80, 80), ("K6d", 1024, 128, 128), ("K6", 1024, 96, 96),
+        ("K6d", 256, 250, 250), ("K6", 256, 250, 250)]),
+    # K6 above m = 32: (16384, 33, 33) and (4096, 64, 64) in float32,
+    # (256, 250, 250) in float64 on the block kernel's global copy, m =
+    # 33, 37, 45, 50, 56 and 64 (each register width of
+    # minor_det_warp_hi.cu and _top.cu), and the block kernel just past
+    # them (m = 80 and 96, in shared memory) and at m = 250 in float32; no
+    # variants of their own (with --baseline, against the baseline's)
+    "k6_block": ({}, [
+        ("K6", 16384, 33, 33), ("K6", 4096, 64, 64), ("K6d", 256, 250, 250),
+        ("K6d", 16384, 33, 33), ("K6", 4096, 37, 37), ("K6d", 4096, 45, 45),
+        ("K6", 4096, 50, 50), ("K6d", 4096, 56, 56), ("K6d", 4096, 64, 64),
+        ("K6d", 1024, 80, 80), ("K6", 1024, 96, 96), ("K6", 256, 250, 250)]),
     # diagnostics of the two warp kernels, each taking one phase out (with
     # --baseline, of the baseline's kernels too): warp_lu's pivot-row
     # broadcast (each lane uses its own row), its pivot search (the pivot
@@ -260,6 +384,29 @@ def _source_edits(edits: list) -> list[tuple[str, dict]]:
             for e in edits if e[0] != PY]
 
 
+def _apply(d: Path, name: str, edits: list) -> set[str]:
+    """Make a variant's edits of the sources copied to ``d``; returns the
+    files touched.  An edit whose alternatives hold the key None may find
+    none of them (nor the file), but every variant with edits of sources
+    must make at least one."""
+    touched = set()
+    for fn, alts in _source_edits(edits):
+        optional = None in alts
+        text = (d / fn).read_text() if (d / fn).exists() else ""
+        hits = [old for old in alts
+                if old is not None and text.count(old) == 1]
+        if len(hits) != 1 and not (optional and not hits):
+            raise SystemExit(f"{name}: no single one of {list(alts)!r} "
+                             f"is in {fn} once; the experiment no "
+                             "longer fits the sources")
+        if hits:
+            (d / fn).write_text(text.replace(hits[0], alts[hits[0]]))
+            touched.add(fn)
+    if _source_edits(edits) and not touched:
+        raise SystemExit(f"{name}: none of its edits fits the sources")
+    return touched
+
+
 def _build_all(variants: dict[str, list],
                baseline: Path | None = None) -> tuple[dict, dict]:
     """Compile ``cur`` and each variant (only the sources its edits reach;
@@ -280,16 +427,7 @@ def _build_all(variants: dict[str, list],
         src_dir = baseline if root == "base" else _build.CSRC
         d = OUT / name
         shutil.copytree(src_dir, d)
-        touched = set()
-        for fn, alts in _source_edits(edits):
-            text = (d / fn).read_text()
-            hits = [old for old in alts if text.count(old) == 1]
-            if len(hits) != 1:
-                raise SystemExit(f"{name}: no single one of {list(alts)!r} "
-                                 f"is in {fn} once; the experiment no "
-                                 "longer fits the sources")
-            (d / fn).write_text(text.replace(hits[0], alts[hits[0]]))
-            touched.add(fn)
+        touched = _apply(d, name, edits)
         for s in sorted(src_dir.glob("*.cu")):
             if name == root or s.name in touched or \
                     _includes(s) & touched or \
@@ -368,8 +506,20 @@ def _launcher(baseline: Path | None):
     return module
 
 
+def _k6_key(m: int, double: bool) -> str:
+    """The ptxas key of K6's kernel at m > 16: the warp kernel's instance
+    (its register width past m = 33, csrc/minor_det_warp_hi.cu and
+    _top.cu) or the block kernel."""
+    t = "d" if double else "f"
+    if m <= 33:
+        return f"K6<{m},warp,{t}"
+    widths = [w for w in (40, 48, 56, 64) if m <= w]
+    return f"K6<{widths[0]},warp,{t}" if widths else "K6<block"
+
+
 def _ptxas(log: str) -> dict[str, str]:
-    """K1<m> / K3<m> -> 'registers r, spill s B' from ptxas -v output."""
+    """K1<m> / K3<m> / K6<m> -> 'registers r, spill s B' from ptxas -v
+    output."""
     out, cur = {}, None
     for line in log.splitlines():
         e = re.search(r"entry function '(\w+)'", line)
@@ -378,10 +528,15 @@ def _ptxas(log: str) -> dict[str, str]:
             k3 = re.search(r"radic_grad_partial_kernelILi(\d+)E", e.group(1))
             w1 = re.search(r"radic_warp_partial_kernelILi(\d+)E", e.group(1))
             w3 = re.search(r"radic_grad_warp_kernelILi(\d+)E", e.group(1))
+            w6 = re.search(r"minor_det_warp_kernelILi(\d+)E(?:Lb[01]E)?"
+                           r"([fd])", e.group(1))
+            b6 = re.search(r"minor_det_block\w*kernelI([fd])E", e.group(1))
             cur = (f"K1<{k1.group(1)},{'staged' if k1.group(2) == '1' else 'global'}>"
                    if k1 else f"K3<{k3.group(1)}>" if k3 else
                    f"K1<{w1.group(1)},warp>" if w1 else
-                   f"K3<{w3.group(1)},warp>" if w3 else None)
+                   f"K3<{w3.group(1)},warp>" if w3 else
+                   f"K6<{w6.group(1)},warp,{w6.group(2)}>" if w6 else
+                   f"K6<block,{b6.group(1)}>" if b6 else None)
         sp = re.search(r"(\d+) bytes spill stores", line)
         if cur and sp:
             out[cur] = f"spill {sp.group(1)} B"
@@ -433,7 +588,10 @@ def _inputs(kernel: str, B: int, m: int, n: int, gen: torch.Generator):
         table = torch.as_tensor(binom_table(n, m, dtype=np.int32)).cuda()
         return qs, table
     dt = torch.float64 if kernel == "K6d" else torch.float32
-    return torch.randn(B, m, m, device="cuda", generator=gen, dtype=dt)
+    # entries of variance 1/m at m > 16, so that |det| stays in range
+    scale = 1.0 if m <= rf.CUDA_MAX_M else m ** -0.5
+    return torch.randn(B, m, m, device="cuda", generator=gen,
+                       dtype=dt) * scale
 
 
 def _call_small(lib, kernel: str, x, m: int, n: int):
@@ -448,10 +606,14 @@ def _call_small(lib, kernel: str, x, m: int, n: int):
         fn = lib.radic_unrank
     else:
         B = x.shape[0]
+        is_double = int(x.dtype == torch.float64)
         out = torch.empty((B,), dtype=x.dtype, device="cuda")
-        # no work buffer at m <= 16
-        args = (x.data_ptr(), B, m, int(x.dtype == torch.float64),
-                out.data_ptr(), 128, None, stream)
+        # the block kernel's global copy, where a matrix passes shared
+        # memory
+        work = torch.empty((lib.radic_minor_det_work_elems(B, m, is_double),),
+                           dtype=x.dtype, device="cuda")
+        args = (x.data_ptr(), B, m, is_double, out.data_ptr(), 128,
+                work.data_ptr() if work.numel() else None, stream)
         fn = lib.radic_minor_det
 
     def run():
@@ -574,7 +736,9 @@ def main(argv: list[str]) -> int:
                        / want.double().abs().max())
                 diff = "" if same else (
                     f" (max |diff| / max |cur| {float(gap):.3e})")
-                key = f"K{'1' if kernel == 'K4' else kernel[1]}<{m}"
+                key = (f"K{'1' if kernel == 'K4' else kernel[1]}<{m}"
+                       if kernel[:2] != "K6" or m <= rf.CUDA_MAX_M else
+                       _k6_key(m, kernel == "K6d"))
                 regs = "; ".join(f"{k} {s}" for k, s in
                                  ptxas[v].items() if k.startswith(key))
                 profiled = "".join(

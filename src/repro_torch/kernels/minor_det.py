@@ -8,10 +8,11 @@ elimination with partial pivoting (strict ``>`` pivot rule; a zero pivot
 gives det 0) (``csrc/minor_det.cu``).  The reference computes in the
 input dtype; here float64 computes in float64 and every other dtype in
 float32, cast back to the input dtype.  Every m: one thread per matrix
-at m ≤ 16, one warp at 17 ≤ m ≤ 32, one block above (on a global copy
-where the matrix does not fit in shared memory).  For a CPU tensor the
-wrapper runs its plain version; for a CUDA tensor it launches the kernel
-or raises.
+at m ≤ 16, one warp at 17 ≤ m ≤ 64, one block above (on a global copy
+where the matrix does not fit in shared memory).  The wrapper checks
+that the stack is square on either device; then, for a CPU tensor, it
+runs its plain version; for a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -58,12 +59,12 @@ def minor_det_cuda(mats: torch.Tensor, *, block: int = 128) -> torch.Tensor:
     """Determinants of ``mats (B, m, m)`` → ``(B,)`` in ``mats.dtype``
     (K6); ``block`` matrices per block at m ≤ 16 (the reference's
     tile), staged in shared memory where they fit."""
+    B, m, m2 = mats.shape
+    if m != m2:  # on either device
+        raise ValueError(f"expected (B, m, m), got {tuple(mats.shape)}")
     if mats.device.type == "cpu":
         return minor_det_plain(mats)
     require_cuda(mats)
-    B, m, m2 = mats.shape
-    if m != m2:
-        raise ValueError(f"expected (B, m, m), got {tuple(mats.shape)}")
     if B == 0 or m == 0:
         return torch.ones((B,), dtype=mats.dtype, device=mats.device)
     from . import _build  # lazy: builds the library at first launch
@@ -72,7 +73,8 @@ def minor_det_cuda(mats: torch.Tensor, *, block: int = 128) -> torch.Tensor:
     out = torch.empty((B,), dtype=cdt, device=mats.device)
     lib = _build.load()
     is_double = int(cdt == torch.float64)
-    # the m > 32 kernel's global copy, where a matrix passes shared memory
+    # the block kernel's (m > 64) global copy, where a matrix passes
+    # shared memory
     work = torch.empty((lib.radic_minor_det_work_elems(B, m, is_double),),
                        dtype=cdt, device=mats.device)
     with torch.cuda.device(mats.device):

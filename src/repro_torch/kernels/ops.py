@@ -4,14 +4,18 @@ dispatch.
 Port of ``repro/kernels/ops.py``, in the reference's order (ops.py:42-143):
 ``m > n`` returns zeros; then :func:`validate_rank_space` for the
 ``cuda`` backend (int32 ranks); then a rank range past ``C(n, m)`` raises
-``ValueError``; then the int32 Pascal table is built, whose peak entry
-raises ``OverflowError`` past int32 (at (33, 34), say); then (gradients)
-the cotangents are reshaped to ``(B,)`` in the input dtype; then the
-kernel wrapper runs.  No entry bounds m, as in the reference: the
-wrappers take m ≤ 16 to the register kernels and larger m to the warp
-kernels.  ``unrank`` checks only the int32 width and ``minor_det``
-nothing.  The wrappers launch the CUDA kernel for a CUDA tensor and run
-its plain torch version for a CPU tensor.
+``ValueError``; then ``m = 0`` is answered as the oracle and the
+reference's jnp backend answer it (the empty minor's determinant, 1, for
+the one rank of ``C(n, 0)``; a zero-row gradient), before any table,
+launch or build (the reference's pallas backend raises
+``ZeroDivisionError`` there); then the int32 Pascal table is built,
+whose peak entry raises ``OverflowError`` past int32 (at (33, 34), say);
+then (gradients) the cotangents are reshaped to ``(B,)`` in the input
+dtype; then the kernel wrapper runs.  No entry bounds m, as in the
+reference: the wrappers take m ≤ 16 to the register kernels and larger m
+to the warp kernels.  ``unrank`` checks only the int32 width and
+``minor_det`` nothing.  The wrappers launch the CUDA kernel for a CUDA
+tensor and run its plain torch version for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -40,6 +44,13 @@ def _rank_range(m: int, n: int, q_start: int, count: int | None) -> int:
     if q_start + count > total:
         raise ValueError("rank range exceeds C(n, m)")
     return count
+
+
+def _empty_minor(As: torch.Tensor, count: int, shape: tuple) -> torch.Tensor:
+    """m = 0: the one rank of C(n, 0) is the empty column set, whose
+    signed minor is 1, so a rank range of ``count`` (0 or 1) ranks sums
+    to ``count``; no kernel takes m = 0, so nothing is launched."""
+    return torch.full(shape, float(count), dtype=As.dtype, device=As.device)
 
 
 def _tensor(A) -> torch.Tensor:
@@ -83,6 +94,8 @@ def radic_det_cuda(A: torch.Tensor, q_start: int = 0,
     if m > n:
         return torch.zeros((), dtype=A.dtype, device=A.device)
     count = _rank_range(m, n, q_start, count)
+    if m == 0:
+        return _empty_minor(A, count, ())
     if table is None:
         table = rank_table(n, m, backend="cuda", device=A.device)
     return radic_partial_cuda(A, table, q_start, count)
@@ -101,6 +114,8 @@ def radic_det_batched_cuda(As: torch.Tensor, q_start: int = 0,
     if m > n:
         return torch.zeros((B,), dtype=As.dtype, device=As.device)
     count = _rank_range(m, n, q_start, count)
+    if m == 0:
+        return _empty_minor(As, count, (B,))
     if table is None:
         table = rank_table(n, m, backend="cuda", device=As.device)
     return radic_batched_partial_cuda(As, table, q_start, count)
@@ -117,6 +132,8 @@ def radic_det_batched_cuda_bygrid(As: torch.Tensor, q_start: int = 0,
     if m > n:
         return torch.zeros((B,), dtype=As.dtype, device=As.device)
     count = _rank_range(m, n, q_start, count)
+    if m == 0:
+        return _empty_minor(As, count, (B,))
     if table is None:
         table = rank_table(n, m, backend="cuda", device=As.device)
     return radic_batched_partial_bygrid_cuda(As, table, q_start, count)
@@ -134,6 +151,8 @@ def radic_det_batched_grad_cuda(As: torch.Tensor, cts, q_start: int = 0,
     if m > n:
         return torch.zeros_like(As)
     count = _rank_range(m, n, q_start, count)
+    if m == 0:  # no entry to differentiate
+        return torch.zeros_like(As)
     if table is None:
         table = rank_table(n, m, backend="cuda", device=As.device)
     cts = torch.as_tensor(cts, device=As.device).to(As.dtype).reshape(B)
@@ -150,6 +169,8 @@ def radic_det_grad_cuda(A: torch.Tensor, ct, q_start: int = 0,
     if m > n:
         return torch.zeros_like(A)
     count = _rank_range(m, n, q_start, count)
+    if m == 0:  # no entry to differentiate
+        return torch.zeros_like(A)
     if table is None:
         table = rank_table(n, m, backend="cuda", device=A.device)
     ct = torch.as_tensor(ct, device=A.device).to(A.dtype).reshape(())

@@ -19,10 +19,12 @@ casts the result back.  Each entry takes m ≤ 16 to the register kernels
 minor) and 17 ≤ m ≤ 33 to the warp kernels (``csrc/radic_warp.cu``,
 ``csrc/radic_warp_grad.cuh``: one warp owns a minor); the int32 Pascal
 table bounds every shape the reference's Pallas path answers to those.
-A wrapper given a tensor on the CPU runs its plain version
-(``*_plain``); given a CUDA tensor it launches the kernel or raises — it
-never falls back.  Every launch adds one to the wrapper's ``launches``
-attribute, and a launch of a warp kernel to its ``wide_launches`` too.
+Each wrapper first checks what the kernels take (m, the table's shape,
+the int32 rank range, the batch), on either device; then, given a tensor
+on the CPU, it runs its plain version (``*_plain``); given a CUDA tensor
+it launches the kernel or raises — it never falls back.  Every launch
+adds one to the wrapper's ``launches`` attribute, and a launch of a warp
+kernel to its ``wide_launches`` too.
 """
 
 from __future__ import annotations
@@ -199,6 +201,8 @@ def radic_grad_partial_plain(A: torch.Tensor, ct, table: torch.Tensor,
 # ------------------------------------------------------------------ launches
 def _check(As: torch.Tensor, table: torch.Tensor, q_start: int,
            count: int, max_batch: int = BATCH_CHUNK * 65535) -> None:
+    """What the kernels take, checked on both branches of a wrapper, so
+    that a CPU tensor is refused what a CUDA tensor would be."""
     B, m, n = As.shape
     if not 1 <= m <= WARP_MAX_M:
         raise ValueError(f"the CUDA kernels are built for 1 <= m <= "
@@ -221,8 +225,6 @@ def _launch(As: torch.Tensor, table: torch.Tensor, q_start: int,
     stream → ``(B,)`` float32: the register walk at m ≤ 16, the warp walk
     above."""
     from . import _build  # lazy: builds the library at first launch
-    _check(As, table, q_start, count,
-           max_batch=65535 if bygrid else BATCH_CHUNK * 65535)
     B = As.shape[0]
     X = As.to(torch.float32).contiguous()
     T = table.to(device=As.device, dtype=torch.int32).contiguous()
@@ -246,7 +248,6 @@ def _launch_grad(As: torch.Tensor, cts: torch.Tensor, table: torch.Tensor,
     """Launch K3's kernel pair on the current stream → ``(B, m, n)``
     float32."""
     from . import _build  # lazy: builds the library at first launch
-    _check(As, table, q_start, count)
     B, m, n = As.shape
     X = As.to(torch.float32).contiguous()
     C = torch.as_tensor(cts, device=As.device).to(torch.float32) \
@@ -271,6 +272,7 @@ def radic_batched_partial_cuda(As: torch.Tensor, table: torch.Tensor,
                                q_start: int, count: int) -> torch.Tensor:
     """Per-matrix Σ sign·det over ranks [q_start, q_start+count) of a
     stack ``As (B, m, n)`` → ``(B,)`` in ``As.dtype`` (K1)."""
+    _check(As, table, q_start, count)
     if As.device.type == "cpu":
         return radic_batched_partial_plain(As, table, q_start,
                                            count).to(As.dtype)
@@ -288,6 +290,7 @@ def radic_partial_cuda(A: torch.Tensor, table: torch.Tensor, q_start: int,
     """Σ sign·det over ranks [q_start, q_start+count) of one matrix
     ``A (m, n)`` → a 0-d tensor in ``A.dtype`` (K2: the K1 kernel at
     B = 1)."""
+    _check(A[None], table, q_start, count)
     if A.device.type == "cpu":
         return radic_partial_plain(A, table, q_start, count).to(A.dtype)
     require_cuda(A)
@@ -303,6 +306,7 @@ def radic_batched_partial_bygrid_cuda(As: torch.Tensor, table: torch.Tensor,
     """K1's function on the by-grid kernel (K4): ``(B,)`` in
     ``As.dtype``, equal to :func:`radic_batched_partial_cuda` bit for
     bit.  The function is K1's, so its plain version is K1's too."""
+    _check(As, table, q_start, count, max_batch=65535)
     if As.device.type == "cpu":
         return radic_batched_partial_plain(As, table, q_start,
                                            count).to(As.dtype)
@@ -322,6 +326,7 @@ def radic_batched_grad_partial_cuda(As: torch.Tensor, cts: torch.Tensor,
     """Cotangents ``cts (B,)`` pulled back through the signed minor sum
     over ranks [q_start, q_start+count) of ``As (B, m, n)`` →
     ``(B, m, n)`` in ``As.dtype`` (K3)."""
+    _check(As, table, q_start, count)
     if As.device.type == "cpu":
         return radic_batched_grad_partial_plain(As, cts, table, q_start,
                                                 count).to(As.dtype)
@@ -340,6 +345,7 @@ def radic_grad_partial_cuda(A: torch.Tensor, ct, table: torch.Tensor,
     """A scalar cotangent pulled back through the signed minor sum of one
     matrix ``A (m, n)`` → ``(m, n)`` in ``A.dtype`` (K3's kernel at
     B = 1, counted on its own)."""
+    _check(A[None], table, q_start, count)
     if A.device.type == "cpu":
         return radic_grad_partial_plain(A, ct, table, q_start,
                                         count).to(A.dtype)

@@ -6,8 +6,9 @@ the Pallas kernel ``unrank_kernel`` (unrank_kernel.py:23, wrapper
 ``unrank_pallas``): int32 ranks ``(B,)`` → 1-indexed m-subsets of
 ``{1..n}`` in dictionary order, ``(B, m)`` int32, by the n-step walk over
 the ``(n+1, m+1)`` Pascal table (``csrc/unrank.cu``).  There is no bound
-on m.  For a CPU tensor the wrapper runs its plain version; for a CUDA
-tensor it launches the kernel or raises.
+on m.  The wrapper checks the table's shape on either device; then, for
+a CPU tensor, it runs its plain version; for a CUDA tensor it launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -34,13 +35,13 @@ def unrank_cuda(qs: torch.Tensor, n: int, m: int, table: torch.Tensor, *,
                 block: int = 256) -> torch.Tensor:
     """Ranks ``qs (B,)`` → 1-indexed combos ``(B, m)`` int32 (K5);
     ``block`` ranks per block (the reference's tile)."""
+    if tuple(table.shape) != (n + 1, m + 1):  # on either device
+        raise ValueError(f"table shape {tuple(table.shape)} != "
+                         f"({n + 1}, {m + 1})")
     if qs.device.type == "cpu":
         return unrank_plain(qs, n, m, table)
     require_cuda(qs)
     B = qs.shape[0]
-    if tuple(table.shape) != (n + 1, m + 1):
-        raise ValueError(f"table shape {tuple(table.shape)} != "
-                         f"({n + 1}, {m + 1})")
     if B == 0 or m == 0:
         return torch.zeros((B, m), dtype=torch.int32, device=qs.device)
     from . import _build  # lazy: builds the library at first launch

@@ -119,3 +119,35 @@ def test_numpy_input_needs_a_device_choice():
     with pytest.raises(ValueError):
         radic_det_batched(torch.zeros(2, 3), backend="torch")
     assert radic_det_batched(torch.zeros(0, 2, 3)).shape == (0,)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("B,m,n", [(2, 3, 6), (3, 2, 5), (1, 4, 7)])
+def test_narrow_floats_compute_in_float32(dtype, B, m, n):
+    """A deliberate difference from the reference's jnp backend: the
+    eager evaluator computes bf16 and f16 in float32 (``torch.linalg.det``
+    takes no narrower float) and rounds the result to the input dtype
+    once, as the reference's pallas entry does (it promotes); the
+    reference's jnp backend computes every minor and the sum in the
+    narrow dtype, so a bf16 sum there moves by a few percent (0.906 for
+    0.880 at seed 0).  Held to the pallas entry within one unit in the
+    last place of the dtype, and to the float64 oracle of the same narrow
+    entries within that unit too, relative to max(1, |det|)."""
+    rng = np.random.default_rng(m * 10 + n)
+    As32 = rng.normal(size=(B, m, n)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    x = jnp.asarray(As32).astype(jdt)
+    ulp = float(torch.finfo(getattr(torch, dtype)).eps)
+    X = torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    got = radic_det_batched(X, backend="torch", device="cpu", chunk=64)
+    assert got.dtype == X.dtype
+    got = got.double().numpy()
+    want_pallas = np.asarray(ref_radic_det_batched(
+        x, backend="pallas")).astype(np.float64)
+    want = np.array([radic_det_oracle(np.asarray(x[b].astype(jnp.float32),
+                                                 np.float64))
+                     for b in range(B)])
+    scale = np.maximum(1.0, np.abs(want))
+    assert (np.abs(got - want_pallas) <= ulp * scale).all()
+    assert (np.abs(got - want) <= ulp * scale).all()

@@ -89,7 +89,20 @@ per source, all at once) and runs these phases, each printing its lines:
 11. the wide cell: ``det_serve.main`` on 256 requests up to (24, 26),
    values and then ``--grad-frac 0.25``, both ``--verify``, launches equal
    to dispatches and the warp kernels launched; then uncounted passes of
-   the values and of the mixed cell under ``torch.profiler``.
+   the values and of the mixed cell under ``torch.profiler``;
+12. the front (``repro_torch.launch.det_front``), every leg with the
+   ``merge`` bucket policy: the mixed requests of phase 7 through
+   ``det_serve.main`` with ``--workers 2``, ``--workers 2 --shm`` and
+   ``--connect`` to two ``--listen`` daemons, and the wide values of
+   phase 11 through ``--workers 2``, each ``--verify`` and each bit for
+   bit equal to the in-process queue's answers to the same command line;
+   ``DetFront(workers=2)`` with one worker SIGKILLed right after the
+   submit and then grown back to two by the ``Autoscaler`` mid-run, bit
+   for bit; and a front over two in-process daemons
+   (``ThreadedWorkerServer``), whose K1 and K3 launches, counted in this
+   process, equal the workers' value and gradient dispatches, then an
+   uncounted pass of it under ``torch.profiler`` for the card's busy
+   share of the front's wall.
 
 Every check holds ``|got - want| <= 2e-3 * max(1, |want|)`` (the
 reference's tolerance against its oracles), ``want`` from the plain
@@ -324,15 +337,19 @@ def ptxas_summary(log: str) -> list[str]:
     return [f"{f}: {' '.join(v)}" for f, v in sorted(fams.items())]
 
 
-def phase_device() -> None:
-    from repro_torch.kernels import _build
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device() -> None:
+    from repro_torch.kernels import _build
+    print(card_line(), flush=True)
     print(f"device: {torch.cuda.get_device_name(0)} x"
           f"{torch.cuda.device_count()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}",
@@ -615,6 +632,21 @@ def phase_serve(errs: Errors) -> dict:
     return {"launches": launches, "stats": stats}
 
 
+def traced(fn) -> tuple[float, list]:
+    """Run ``fn`` under ``torch.profiler``: its host wall clock, µs, and
+    the card's events (kernels and copies) it recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return wall_us, [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+
+
 def serve_trace(extra: tuple[str, ...] = (),
                 base: list[str] | None = None) -> None:
     """Where the serving time goes: a second, uncounted serving pass
@@ -624,19 +656,15 @@ def serve_trace(extra: tuple[str, ...] = (),
     import contextlib
     import io
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch import det_serve
 
     args = [*(SERVE_ARGS if base is None else base), *extra]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def serve():
         with contextlib.redirect_stdout(io.StringIO()):
             det_serve.main(args)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    wall_us, dev = traced(serve)
     if not dev:
         print("serve trace: the profiler saw no device activity "
               "(device busy share not measured)")
@@ -1416,6 +1444,171 @@ def phase_wide_serve() -> dict:
     return out
 
 
+def same_answers(got: list, want: list) -> bool:
+    """Bit for bit: every value and every gradient array."""
+    return len(got) == len(want) and all(
+        np.array_equal(np.asarray(a), np.asarray(b))
+        for a, b in zip(got, want))
+
+
+def phase_front() -> None:
+    """The front: the serving tier of ``DetFront`` over every transport,
+    each answer bit for bit the in-process queue's on the same requests,
+    the kernels' launches counted where the workers run in this process.
+
+    Every leg buckets with ``--policy merge`` (each shape always goes to
+    its canonical bucket): under ``auto`` a bucket merges or not by the
+    depth of the queue's snapshot, which differs between one queue and a
+    worker that holds part of the requests, and a merged bucket sums its
+    minors in another order."""
+    import contextlib
+    import io
+    import multiprocessing
+
+    from repro_torch.kernels.radic_fused import (
+        radic_batched_grad_partial_cuda as k3,
+        radic_batched_partial_cuda as k1)
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import det_serve
+    from repro_torch.launch import transport as T
+    from repro_torch.launch.autoscale import Autoscaler
+    from repro_torch.launch.det_front import DetFront
+    from repro_torch.launch.det_queue import BucketPolicy
+
+    print(card_line(), flush=True)
+    mixed = [*SERVE_ARGS, "--grad-frac", "0.25", "--policy", "merge"]
+    wide = [*WIDE_SERVE_ARGS, "--policy", "merge"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = det_serve.main(mixed)[0]
+        wide_want = det_serve.main(wide)[0]
+    mixed.append("--verify")
+
+    def leg(label: str, argv: list[str], ref: list) -> None:
+        t0 = time.perf_counter()
+        dets, stats = det_serve.main(argv)
+        total = time.perf_counter() - t0
+        f = stats["front"]
+        per = ", ".join(
+            f"{wid}: {s['dispatches']} ({s['grad_dispatches']} grad)"
+            for wid, s in sorted(stats["workers"].items()))
+        print(f"front {label}: wall {f['wall_s']:.4f} s, "
+              f"{len(ref) / f['wall_s']:.1f} mats/s; dispatches by worker "
+              f"{per}; {total:.1f} s with start-up and --verify",
+              flush=True)
+        check(f["completed"] == len(ref) and f["errors"] == 0
+              and f["worker_deaths"] == 0 and not f["degraded"],
+              f"front {label}: {f}")
+        check(same_answers(dets, ref),
+              f"front {label}: not bit-identical to the in-process queue")
+
+    leg("local x2", [*mixed, "--workers", "2"], want)
+    leg("shm x2", [*mixed, "--workers", "2", "--shm"], want)
+    daemons = []
+    try:
+        for _ in range(2):
+            daemons.append(T.spawn_worker_daemon(device="cuda",
+                                                 timeout=300))
+        leg("socket x2", [*mixed, "--connect",
+                          ",".join(a for _, a in daemons)], want)
+        for proc, _ in daemons:
+            check(proc.wait(timeout=120) == 0,
+                  "a --listen --serve-once daemon exited non-zero")
+    finally:
+        for proc, _ in daemons:
+            proc.kill()
+            proc.wait(timeout=30)
+            proc.stdout.close()
+    leg("wide local x2", [*wide, "--workers", "2", "--verify"], wide_want)
+
+    mats = det_serve._random_queue(512, 8, 32, 0)
+    grads = det_serve._grad_mix(512, 0.25, 0)
+    policy = BucketPolicy(max_batch=64, mode="merge")
+    with DetFront(workers=2, policy=policy, device="cuda") as front:
+        front.snapshot(timeout=300)
+        victim = front.owner_of(mats[0].shape)
+        futs = front.submit_many(mats, grads)
+        front.kill_worker(victim)
+        got = [f.result(timeout=300) for f in futs]
+        f = front.snapshot()["front"]
+        print(f"front kill: worker {victim} SIGKILLed right after the "
+              f"submit; {f['rerouted']} requests re-routed, "
+              f"{f['completed']} answered", flush=True)
+        check(f["worker_deaths"] == 1 and f["completed"] == 512,
+              f"front kill: {f}")
+        check(same_answers(got, want),
+              "front kill: not bit-identical to the in-process queue")
+
+        scaler = Autoscaler(front, min_workers=1, max_workers=2,
+                            up_ticks=2, cooldown_s=5.0)
+        busy = {"front": {"workers_alive": 1, "pending": {0: 64},
+                          "shed": 0, "submitted": 64,
+                          "latency_ema_s": {}, "plan_load": {}}}
+        futs = front.submit_many(mats[:256], grads[:256])
+        check(scaler.tick(busy, now=0.0) == "hold"
+              and scaler.tick(busy, now=1.0) == "up",
+              "front autoscale: no scale-up on a breach")
+        deadline = time.monotonic() + 120
+        while len(front.alive_workers) != 2:
+            check(time.monotonic() < deadline,
+                  "front autoscale: the grown worker never came up")
+            time.sleep(0.05)
+        futs += front.submit_many(mats[256:], grads[256:])
+        got = [f.result(timeout=300) for f in futs]
+        snap = front.snapshot()
+        print(f"front autoscale: grew to workers {front.alive_workers} "
+              f"mid-run; routed {snap['front']['routed']}", flush=True)
+        check(same_answers(got, want),
+              "front autoscale: not bit-identical to the in-process queue")
+
+    servers = [T.ThreadedWorkerServer(max_sessions=1) for _ in range(2)]
+    try:
+        transport = T.SocketTransport([s.address for s in servers])
+        with DetFront(transport=transport, policy=policy,
+                      device="cuda") as front:
+            front.snapshot(timeout=300)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got = [f.result(timeout=300)
+                   for f in front.submit_many(mats, grads)]
+            wall = time.perf_counter() - t0
+            launched = (k1.launches, k3.launches)
+            snap = front.snapshot()
+            check(same_answers(got, want), "front in-process daemons: not "
+                  "bit-identical to the in-process queue")
+            grads_d = sum(s["grad_dispatches"]
+                          for s in snap["workers"].values())
+            values = sum(s["dispatches"]
+                         for s in snap["workers"].values()) - grads_d
+            print(f"front in-process daemons x2: wall {wall:.4f} s, "
+                  f"{512 / wall:.1f} mats/s; K1 launches {launched[0]} "
+                  f"(value dispatches {values}), K3 launches "
+                  f"{launched[1]} (grad dispatches {grads_d})", flush=True)
+            check(launched == (values, grads_d) and values > 0
+                  and grads_d > 0,
+                  f"front: launches {launched} != dispatches "
+                  f"{(values, grads_d)}")
+
+            def serve():
+                for f in front.submit_many(mats, grads):
+                    f.result(timeout=300)
+
+            wall_us, dev = traced(serve)
+        if dev:
+            busy = busy_us(dev)
+            print(f"front trace (in-process daemons x2, mixed): wall "
+                  f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+                  f"({busy / wall_us:.2%}, idle {1 - busy / wall_us:.2%}); "
+                  f"{len(dev)} device events", flush=True)
+        else:
+            print("front trace: the profiler saw no device activity "
+                  "(device busy share not measured)")
+    finally:
+        for s in servers:
+            s.close(timeout=10)
+    left = multiprocessing.active_children()
+    check(not left, f"the front left worker processes behind: {left}")
+
+
 def phase_times(gen: torch.Generator, serve: dict, k2_big,
                 grad_A: torch.Tensor) -> dict:
     from repro_torch.core import radic_det
@@ -1640,6 +1833,8 @@ def main() -> int:
     serve_trace(base=WIDE_SERVE_ARGS)
     serve_trace(("--grad-frac", "0.25"), base=WIDE_SERVE_ARGS)
     done("11 wide serving")
+    phase_front()
+    done("12 the front")
     times = phase_times(gen, serve, k2["big"], autograd["A"])
     done("9 times")
     csrc = "src/repro_torch/kernels/csrc/"

@@ -1,16 +1,33 @@
 """Determinant serving CLI: drive the async pipelined
-:class:`repro_torch.launch.det_queue.DetQueue` (default) or the
+:class:`repro_torch.launch.det_queue.DetQueue` (default), the multi-worker
+:class:`repro_torch.launch.det_front.DetFront` (``--workers N``) or the
 synchronous :func:`drain_queue` reference over a queue of heterogeneous
 matrices, on the card.
 
-Port of ``repro/launch/det_serve.py`` (the in-process paths).  Requests
-are arbitrary (m_i, n_i) matrices, grouped by shape (one bucket = one
-C(n, m) rank space = one Pascal table), padded along the batch dimension
-(bounded by ``--max-batch``) and evaluated in one dispatch per group.
+Port of ``repro/launch/det_serve.py``.  Requests are arbitrary
+(m_i, n_i) matrices, grouped by shape (one bucket = one C(n, m) rank
+space = one Pascal table), padded along the batch dimension (bounded by
+``--max-batch``) and evaluated in one dispatch per group.
 
   PYTHONPATH=src python -m repro_torch.launch.det_serve --num 64 --verify
   PYTHONPATH=src python -m repro_torch.launch.det_serve --num 64 \\
       --device cpu --backend torch --sync
+  PYTHONPATH=src python -m repro_torch.launch.det_serve --num 256 \\
+      --workers 2 [--shm] --verify
+
+The front's flags are the reference's: ``--workers N [--shm]`` spawns N
+worker processes on this host (``--shm`` carries the matrices over a
+shared-memory ring), ``--listen HOST:PORT [--serve-once]`` runs a worker
+daemon that a front reaches with ``--connect host:port,...`` (the
+front's handshake ships the serving config, device included),
+``--accept HOST:PORT`` lets daemons started with ``--join HOST:PORT``
+dial in later, ``--autoscale MAX`` grows and retires workers between 1
+and MAX, and ``--heartbeat``/``--ack-timeout`` bound how long a silent
+peer or an unacknowledged batch may last before it counts as dead.  On
+the card every worker holds its own CUDA context on the one device, so
+give ``--autoscale`` an explicit maximum there.  A front that spawns its
+workers, and a daemon, builds the kernel library before any worker
+starts; the workers load it.
 
 ``--grad-frac f`` submits a seed-derived fraction of the requests as
 gradient requests (cotangent 1.0, the reference's mix for the same seed);
@@ -18,10 +35,10 @@ their results are the ``(m, n)`` arrays d(det)/dA, served through the
 plan's backward (the CUDA backward kernel on the ``cuda`` backend).
 
 There is no warm pass: nothing is compiled per shape, and the kernel
-library is built before the timed pass.  The front, transport and elastic
-flags of the reference (``--workers``, ``--listen``, ``--connect``,
-``--join``, ``--accept``, ``--autoscale``, ``--plan-store``,
-``--prefill``) are not ported yet.
+library is built before the timed pass (a front's timed pass starts once
+every worker has answered a stats request, that is, has built its
+queue).  The reference's ``--plan-store`` and ``--prefill`` (the plan
+store and its warm start) are not ported yet.
 
 ``--verify`` checks every result on a different code path: a value
 against the exact enumeration oracle (``radic_det_oracle``) when its rank
@@ -158,6 +175,67 @@ def _verify(mats, dets, grads, device: torch.device) -> tuple[float, float]:
     return worst, worst_g
 
 
+def _serve_front(front, mats, label: str, num: int, backend: str,
+                 grads=None):
+    """A timed pass through any DetFront once every worker is up, then
+    the front report (shared by ``--workers`` and ``--connect``); returns
+    ``(dets, stats, wall)``."""
+    front.snapshot(timeout=300.0)  # every worker has built its queue
+    t0 = time.perf_counter()
+    dets = _serve_tolerating_sheds(front, mats, grads)
+    wall = time.perf_counter() - t0
+    stats = front.snapshot()
+    stats["front"]["wall_s"] = wall
+    f, tot = stats["front"], stats["total"]
+    print(f"# det_serve[{label}]: {num} requests, backend={backend}, "
+          f"device={front.device}")
+    print(f"front: workers={f['workers_alive']}/{f['workers_total']} "
+          f"rerouted={f['rerouted']} worker_deaths={f['worker_deaths']} "
+          f"shed={f['shed']} errors={f['errors']} "
+          f"degraded={f['degraded']} joined={f['joined']} "
+          f"stragglers_drained={f['stragglers_drained']}")
+    print(f"total: batches={tot['batches']} "
+          f"dispatches={tot['dispatches']} "
+          f"grad_dispatches={tot['grad_dispatches']} "
+          f"merged_requests={tot['merged_requests']} "
+          f"padded_slots={tot['padded_slots']} "
+          f"backlog_peak={tot['backlog_peak']} "
+          f"plan_cache={tot['plan_cache']['size']} "
+          f"(hits={tot['plan_cache']['hits']} "
+          f"misses={tot['plan_cache']['misses']})")
+    print("worker,routed,completed,batches,dispatches,grad_dispatches,shed,"
+          "backlog_peak,plans")
+    for wid, snap in sorted(stats["workers"].items()):
+        print(f"{wid},{f['routed'].get(wid, 0)},{snap['completed']},"
+              f"{snap['batches']},{snap['dispatches']},"
+              f"{snap['grad_dispatches']},{snap['shed']},"
+              f"{snap['backlog_peak']},{snap['plan_cache']['size']}")
+    print("bucket_m,bucket_n,count,batches,ranks,mean_wait_s")
+    for (m, n), b in sorted(tot["buckets"].items()):
+        print(f"{m},{n},{b['count']},{b['batches']},{b['ranks']},"
+              f"{b['wait_s'] / max(1, b['count']):.4f}")
+    return dets, stats, wall
+
+
+def _serve_scaled(front, mats, label: str, num: int, backend: str,
+                  autoscale_max: int, grads=None):
+    """``_serve_front``, optionally under the SLO autoscaler.
+
+    CLI runs are seconds long, so the controller gets a fast cadence and
+    short cooldown here; long-lived deployments should keep the
+    :class:`~repro_torch.launch.autoscale.AutoscalePolicy` defaults."""
+    if not autoscale_max:
+        return _serve_front(front, mats, label, num, backend, grads)
+    from repro_torch.launch.autoscale import Autoscaler
+    with Autoscaler(front, min_workers=1, max_workers=autoscale_max,
+                    interval_s=0.25, cooldown_s=2.0) as scaler:
+        out = _serve_front(front, mats, f"{label}+autoscale{autoscale_max}",
+                           num, backend, grads)
+    print(f"autoscale: up={scaler.scaled_up} down={scaler.scaled_down} "
+          f"stalls={scaler.stalls}")
+    return out
+
+
 def _warm_device(device: torch.device, backend: str) -> None:
     """Bring up the card and build the kernel library before the clock
     starts (the reference's warm pass compiles; the port builds once)."""
@@ -170,7 +248,15 @@ def _warm_device(device: torch.device, backend: str) -> None:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(
+        epilog="multi-host recipe: start `--listen 0.0.0.0:7341` on every "
+               "worker host, then run the front with "
+               "`--connect hostA:7341,hostB:7341` — the front's handshake "
+               "ships the serving config (device included), so daemons "
+               "take no tuning flags; see DESIGN_FRONT.md for the wire "
+               "protocol and failure semantics.  Single-host fast path: "
+               "`--workers N --shm` moves matrix payloads into a "
+               "per-worker shared-memory ring (bit-identical results).")
     ap.add_argument("--num", type=int, default=64,
                     help="queued requests to synthesize")
     ap.add_argument("--max-m", type=int, default=4)
@@ -184,6 +270,46 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sync", action="store_true",
                     help="use the synchronous drain_queue reference")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="serve through the multi-worker DetFront with N "
+                         "worker processes (0 = in-process DetQueue)")
+    ap.add_argument("--shm", action="store_true",
+                    help="--workers: carry matrix payloads over a per-"
+                         "worker shared-memory ring instead of the pickled "
+                         "queue (same-host only, bit-identical results)")
+    ap.add_argument("--listen", type=str, default="",
+                    help="run as a worker daemon on HOST:PORT instead of "
+                         "serving a synthetic queue (the front's --connect "
+                         "handshake ships the config; combine with "
+                         "--serve-once for tests)")
+    ap.add_argument("--serve-once", action="store_true",
+                    help="with --listen: exit after the first front "
+                         "session ends")
+    ap.add_argument("--join", type=str, default="",
+                    help="run as a worker daemon that dials INTO a running "
+                         "front's --accept listener at HOST:PORT (live "
+                         "join: same handshake as --listen, direction "
+                         "reversed; exits when the front session ends)")
+    ap.add_argument("--accept", type=str, default="",
+                    help="--connect/--workers: also listen on HOST:PORT "
+                         "for workers that dial in later with --join "
+                         "(port 0 = ephemeral; the bound address is in "
+                         "snapshot()['front']['accept_address'])")
+    ap.add_argument("--autoscale", type=int, default=0,
+                    help="--connect/--workers: run the SLO autoscaler, "
+                         "growing/retiring workers between 1 and N "
+                         "(0 = static pool; see launch/autoscale.py)")
+    ap.add_argument("--connect", type=str, default="",
+                    help="serve through a DetFront over remote worker "
+                         "daemons: comma-separated host:port list, one "
+                         "address per worker (see --listen)")
+    ap.add_argument("--heartbeat", type=float, default=1.0,
+                    help="--connect: worker heartbeat cadence in seconds "
+                         "(a peer silent for 5 beats is declared dead)")
+    ap.add_argument("--ack-timeout", type=float, default=0.0,
+                    help="--connect/--workers: declare a worker dead when "
+                         "a batch stays unacknowledged this long "
+                         "(0 = disabled; bounds frame loss, not compute)")
     ap.add_argument("--policy", choices=("auto", "merge", "never"),
                     default="auto", help="re-bucketing mode (async path)")
     ap.add_argument("--max-pending", type=int, default=0,
@@ -194,7 +320,8 @@ def main(argv=None):
                     help="fraction of requests submitted as gradient "
                          "requests (cotangent 1.0): their futures resolve "
                          "to the (m, n) ndarray d(det)/dA instead of a "
-                         "float — async path only (DESIGN_GRAD.md)")
+                         "float — async and front paths only "
+                         "(DESIGN_GRAD.md)")
     ap.add_argument("--verify", action="store_true",
                     help="cross-check every result: values against the "
                          "exact oracle (float64 torch past "
@@ -204,13 +331,53 @@ def main(argv=None):
     if not 0.0 <= args.grad_frac <= 1.0:
         ap.error("--grad-frac must be in [0, 1]")
     if args.grad_frac > 0 and args.sync:
-        ap.error("--grad-frac needs the async path (drop --sync)")
+        ap.error("--grad-frac needs the async or front path (drop --sync)")
     device = resolve_device(args.device)
+
+    if args.listen or args.join:
+        # worker daemon mode: no synthetic queue, no report — just a
+        # DetQueue+DetEngine behind a socket, config shipped by the front;
+        # on the card the kernel library is built before any session
+        from repro_torch.launch.transport import (parse_hostport,
+                                                  run_worker_client,
+                                                  run_worker_server)
+        if device.type == "cuda":
+            from repro_torch.kernels import _build
+            _build.load()
+        if args.listen:
+            host, port = parse_hostport(args.listen)
+            run_worker_server(host, port, serve_once=args.serve_once)
+        else:
+            run_worker_client(args.join)
+        return None, None
+
     mats = _random_queue(args.num, args.max_m, args.max_n, args.seed)
     grads = _grad_mix(args.num, args.grad_frac, args.seed)
-    _warm_device(device, args.backend)
 
-    if args.sync:
+    policy = BucketPolicy(max_batch=args.max_batch, mode=args.policy)
+    front_kw = dict(chunk=args.chunk, backend=args.backend, policy=policy,
+                    device=device, max_pending=args.max_pending or None,
+                    ack_timeout_s=args.ack_timeout or None,
+                    accept=args.accept or None)
+    if args.connect:
+        from repro_torch.launch.det_front import DetFront
+        from repro_torch.launch.transport import SocketTransport
+        addrs = [a.strip() for a in args.connect.split(",") if a.strip()]
+        transport = SocketTransport(addrs, heartbeat_s=args.heartbeat)
+        with DetFront(transport=transport, **front_kw) as front:
+            dets, stats, wall = _serve_scaled(
+                front, mats, f"front x{len(addrs)}@socket/{args.policy}",
+                args.num, args.backend, args.autoscale, grads)
+    elif args.workers > 0:
+        from repro_torch.launch.det_front import DetFront
+        wire = "shm" if args.shm else "local"
+        with DetFront(workers=args.workers, shm=args.shm,
+                      **front_kw) as front:
+            dets, stats, wall = _serve_scaled(
+                front, mats, f"front x{args.workers}@{wire}/{args.policy}",
+                args.num, args.backend, args.autoscale, grads)
+    elif args.sync:
+        _warm_device(device, args.backend)
         t0 = time.perf_counter()
         dets, stats = drain_queue(mats, chunk=args.chunk,
                                   backend=args.backend,
@@ -225,7 +392,7 @@ def main(argv=None):
                   f"{s['wall_s']:.4f},{s['mats_per_s']:.1f},"
                   f"{s['ranks_per_s']:.3e}")
     else:
-        policy = BucketPolicy(max_batch=args.max_batch, mode=args.policy)
+        _warm_device(device, args.backend)
         with DetQueue(chunk=args.chunk, backend=args.backend, policy=policy,
                       max_pending=args.max_pending or None,
                       device=device) as q:

@@ -1,7 +1,14 @@
 """The port's det_serve CLI against the reference CLI: the same seed
-gives the same requests and the same determinants."""
+gives the same requests and the same determinants.  The front legs twin
+``tests/test_det_serve_cli.py``'s: ``--workers``, ``--workers --shm`` and
+``--listen``/``--connect``, each run as the real CLI in a subprocess on
+the CPU (``--device cpu``)."""
 
+import os
 import re
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -48,10 +55,12 @@ def test_async_stats_and_shedding(capsys):
 
 
 def test_cli_rejects_reference_only_flags():
-    with pytest.raises(SystemExit):
-        det_serve.main(["--device", "cpu", "--workers", "2"])
-    with pytest.raises(SystemExit):
-        det_serve.main(["--device", "cpu", "--backend", "pallas"])
+    """The plan store's flags wait for its module; the JAX backends do
+    not exist in the port."""
+    for argv in (["--plan-store", "/nonexistent"], ["--prefill"],
+                 ["--backend", "pallas"], ["--backend", "jnp"]):
+        with pytest.raises(SystemExit):
+            det_serve.main(["--device", "cpu", *argv])
 
 
 def test_grad_mix_equals_reference_and_verifies(capsys):
@@ -81,3 +90,95 @@ def test_grad_frac_is_async_only():
         det_serve.main(["--device", "cpu", "--grad-frac", "0.5", "--sync"])
     with pytest.raises(SystemExit):
         det_serve.main(["--device", "cpu", "--grad-frac", "1.5"])
+
+
+# ------------------------------------------------------------ front legs
+REPO = Path(__file__).resolve().parents[1]
+COMMON = ["--num", "12", "--max-m", "3", "--max-n", "8", "--seed", "1",
+          "--device", "cpu"]
+
+
+def _run(*extra, timeout=240):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.det_serve", *COMMON,
+         *extra], capture_output=True, text=True, timeout=timeout,
+        cwd=REPO, env=env)
+
+
+def _check_front_output(stdout: str, workers: int, label: str):
+    m = re.search(r"^total,(\d+) mats,([0-9.]+)s,([0-9.]+) mats/s$",
+                  stdout, re.MULTILINE)
+    assert m and int(m.group(1)) == 12, stdout
+    assert f"det_serve[{label}" in stdout
+    m = re.search(r"^front: workers=(\d+)/(\d+) rerouted=(\d+) "
+                  r"worker_deaths=(\d+) shed=(\d+)", stdout, re.MULTILINE)
+    assert m, f"no front stats line in:\n{stdout}"
+    assert m.group(1) == m.group(2) == str(workers)
+    assert m.group(4) == "0"  # a clean run kills nobody
+    # one per-worker stats row each, all requests accounted for
+    rows = re.findall(r"^(\d+),(\d+),(\d+),(\d+),(\d+),(\d+),(\d+),"
+                      r"(\d+),(\d+)$", stdout, re.MULTILINE)
+    assert len(rows) == workers
+    assert sum(int(x[2]) for x in rows) == 12  # completed column
+    assert re.search(r"verify: worst rel err [0-9.e+-]+, worst grad rel "
+                     r"err [0-9.e+-]+", stdout)
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_cli_front_smoke(workers):
+    r = _run("--workers", str(workers), "--grad-frac", "0.25", "--verify")
+    assert r.returncode == 0, r.stderr
+    _check_front_output(r.stdout, workers, f"front x{workers}@local")
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_cli_front_shm_smoke(workers):
+    """``--workers N --shm``: the shared-memory ring end to end through
+    the CLI — exit 0, shm label in the report, every request completed
+    and verified."""
+    r = _run("--workers", str(workers), "--shm", "--grad-frac", "0.25",
+             "--verify")
+    assert r.returncode == 0, r.stderr
+    _check_front_output(r.stdout, workers, f"front x{workers}@shm")
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_cli_listen_connect_loopback(workers):
+    """The two-command multi-host recipe, loopback edition: worker
+    daemons (``--listen``, separate processes) + a front (``--connect``)
+    — exit 0 on both sides, stats parsed, results verified."""
+    from repro_torch.launch.transport import spawn_worker_daemon
+    daemons = []
+    try:
+        for _ in range(workers):
+            daemons.append(spawn_worker_daemon(device="cpu"))
+        addrs = ",".join(a for _, a in daemons)
+        r = _run("--connect", addrs, "--grad-frac", "0.25", "--verify")
+        assert r.returncode == 0, r.stderr
+        _check_front_output(r.stdout, workers, f"front x{workers}@socket")
+        for proc, _ in daemons:
+            assert proc.wait(timeout=120) == 0  # --serve-once: clean exit
+    finally:
+        for proc, _ in daemons:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def test_cli_front_autoscale_and_accept(capsys):
+    """``--autoscale`` and ``--accept`` through ``main``: the front
+    report carries the autoscaler's line, every request is answered and
+    equals the in-process queue's answer for the same command line."""
+    argv = [*COMMON, "--grad-frac", "0.25"]
+    want, _ = det_serve.main(argv)
+    dets, stats = det_serve.main([*argv, "--workers", "1", "--autoscale",
+                                  "2", "--accept", "127.0.0.1:0"])
+    out = capsys.readouterr().out
+    assert re.search(r"^autoscale: up=\d+ down=\d+ stalls=0$", out,
+                     re.MULTILINE)
+    assert stats["front"]["accept_address"].startswith("127.0.0.1:")
+    assert stats["front"]["completed"] == 12
+    for got, ref_got in zip(dets, want):
+        np.testing.assert_array_equal(got, ref_got)

@@ -102,7 +102,22 @@ per source, all at once) and runs these phases, each printing its lines:
    (``ThreadedWorkerServer``), whose K1 and K3 launches, counted in this
    process, equal the workers' value and gradient dispatches, then an
    uncounted pass of it under ``torch.profiler`` for the card's busy
-   share of the front's wall.
+   share of the front's wall;
+13. warm start (the plan store): the mixed cell of phase 12 through
+   ``det_serve.main --plan-store S --verify`` in a fresh interpreter into
+   an empty store (the kernel library copied into ``S/kernels/``), then
+   again in a fresh interpreter from a copy of ``src/repro_torch`` whose
+   ``build/`` is empty (the library loaded from the store with no
+   ``nvcc``, every family a store hit, none a miss), then through
+   ``--workers 2 --prefill`` (store hits on every worker, no miss) and a
+   ``DetFront`` admitting a joiner (``run_worker_client``) that warms the
+   shipped families from the store before it answers ready; every answer
+   bit for bit the in-process queue's; each pass's wall time to its first
+   answer and the library's copy or load time; ``aot_compile_batched`` at
+   (64, 8, 20) and (16, 20, 24), value and gradient bit for bit
+   ``radic_det_batched``'s with one K1 and one K3 launch each, a batch of
+   another size refused; a checkpoint of card tensors (float32, float64,
+   int32, bfloat16) restored on the card and on the CPU bit for bit.
 
 Every check holds ``|got - want| <= 2e-3 * max(1, |want|)`` (the
 reference's tolerance against its oracles), ``want`` from the plain
@@ -1609,6 +1624,242 @@ def phase_front() -> None:
     check(not left, f"the front left worker processes behind: {left}")
 
 
+# One serving pass in a fresh interpreter over a plan store: the mixed
+# cell through ``det_serve.main`` (argv after the output path), its answers
+# pickled to that path, and on the last line its plan-cache counts, the
+# store's entries, the kernel library's origin and seconds, and the wall
+# time from the script's start (before torch is imported) to the first
+# answer.
+WARM_PASS_SCRIPT = r"""
+import time
+T0 = time.perf_counter()
+import json, pickle, sys
+import repro_torch
+from repro_torch.checkpoint import PlanStore
+from repro_torch.kernels import _build
+from repro_torch.launch import det_queue, det_serve
+
+first = []
+submit_many = det_queue.DetQueue.submit_many
+
+
+def timed_submit_many(self, *args, **kwargs):
+    futs = submit_many(self, *args, **kwargs)
+    for f in futs:  # callbacks run on the completer thread, one at a time
+        f.add_done_callback(
+            lambda _: first or first.append(time.perf_counter()))
+    return futs
+
+
+det_queue.DetQueue.submit_many = timed_submit_many
+out_path, argv = sys.argv[1], sys.argv[2:]
+dets, stats = det_serve.main(argv)
+with open(out_path, "wb") as f:
+    pickle.dump(dets, f)
+store = argv[argv.index("--plan-store") + 1]
+info = {k: v for k, v in _build.build_info().items() if k != "log"}
+print(json.dumps({"package": repro_torch.__file__, "build": info,
+                  "plan_cache": stats["plan_cache"],
+                  "entries": PlanStore(store).stats()["entries"],
+                  "first_answer_s": first[0] - T0,
+                  "wall_s": time.perf_counter() - T0}))
+"""
+
+
+def warm_pass(src: Path, argv: list[str], out: Path) -> tuple[dict, list]:
+    """Run ``WARM_PASS_SCRIPT`` with ``src`` as the only source of
+    ``repro_torch``; returns its summary and its answers."""
+    import os
+    import pickle
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    proc = subprocess.run(
+        [sys.executable, "-c", WARM_PASS_SCRIPT, str(out), *argv],
+        capture_output=True, text=True, timeout=600, env=env,
+        cwd=src.parent)
+    check(proc.returncode == 0,
+          f"warm-start pass failed:\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(out, "rb") as f:
+        return summary, pickle.load(f)
+
+
+def phase_warm_start(gen: torch.Generator) -> None:
+    """Phase 13: the plan store and warm starts on the card, then the
+    capacity-pinned plans and checkpoints of tensors on the card."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import aot_compile_batched, radic_det_batched
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.radic_fused import (
+        radic_batched_grad_partial_cuda as k3,
+        radic_batched_partial_cuda as k1)
+    from repro_torch.launch import det_serve
+    from repro_torch.launch import transport as T
+    from repro_torch.launch.det_front import DetFront
+    from repro_torch.launch.det_queue import BucketPolicy
+
+    print(card_line(), flush=True)
+    mixed = [*SERVE_ARGS, "--grad-frac", "0.25", "--policy", "merge"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = det_serve.main(mixed)[0]  # the in-process queue, no store
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        store = tmp / "store"
+        argv = [*mixed, "--verify", "--plan-store", str(store)]
+        cold, cold_dets = warm_pass(ROOT / "src", argv, tmp / "cold.pkl")
+        pc = cold["plan_cache"]
+        families = pc["misses"]
+        print(f"warm start, cold pass: {families} families, store_misses "
+              f"{pc['store_misses']}, store_hits {pc['store_hits']}, "
+              f"evictions {pc['evictions']} (LRU of {pc['max_plans']}), "
+              f"{cold['entries']} entries written; kernel library "
+              f"{cold['build']['origin']} into the store in "
+              f"{cold['build']['seconds']:.3f} s; first answer "
+              f"{cold['first_answer_s']:.3f} s after the interpreter "
+              f"started (wall {cold['wall_s']:.3f} s)", flush=True)
+        check(pc["store_misses"] == families > 0 and pc["store_hits"] == 0
+              and cold["entries"] == families,
+              f"cold pass: {pc}, {cold['entries']} entries")
+        check(cold["build"]["origin"] == "copied" and Path(
+              cold["build"]["path"]).parent == store / "kernels",
+              f"cold pass: the library was not copied into the store: "
+              f"{cold['build']}")
+        check(same_answers(cold_dets, want),
+              "cold pass: not bit-identical to the in-process queue")
+
+        # a checkout that never built: only the sources of the package
+        copy = tmp / "checkout" / "src"
+        shutil.copytree(ROOT / "src" / "repro_torch", copy / "repro_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        warm, warm_dets = warm_pass(copy, argv, tmp / "warm.pkl")
+        pc = warm["plan_cache"]
+        print(f"warm start, warm pass (from {warm['package']}): "
+              f"{pc['misses']} families, store_hits {pc['store_hits']}, "
+              f"store_misses {pc['store_misses']}; kernel library "
+              f"{warm['build']['origin']} from the store in "
+              f"{warm['build']['seconds']:.3f} s; first answer "
+              f"{warm['first_answer_s']:.3f} s after the interpreter "
+              f"started (wall {warm['wall_s']:.3f} s)", flush=True)
+        check(warm["package"].startswith(str(copy)),
+              f"warm pass imported {warm['package']}")
+        check(warm["build"]["origin"] == "loaded"
+              and not warm["build"]["built"]
+              and not (tmp / "checkout" / "build").exists(),
+              f"warm pass: the library did not load from the store: "
+              f"{warm['build']}")
+        check(pc["misses"] == families and pc["store_hits"] == families
+              and pc["store_misses"] == 0,
+              f"warm pass: {pc} against {families} families")
+        check(same_answers(warm_dets, cold_dets),
+              "warm pass: not bit-identical to the cold pass")
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            dets, stats = det_serve.main(
+                [*argv, "--workers", "2", "--prefill"])
+        per = {wid: s["plan_cache"] for wid, s in stats["workers"].items()}
+        print(f"warm start, front x2: prefill {stats['front']['prefill']}; "
+              "store hits/misses by worker " + ", ".join(
+                  f"{wid}: {c['store_hits']}/{c['store_misses']}"
+                  for wid, c in sorted(per.items())), flush=True)
+        check(stats["front"]["prefill"] is True and len(per) == 2 and all(
+              c["store_hits"] >= 1 and c["store_misses"] == 0
+              for c in per.values()), f"warm start, front: {per}")
+        check(same_answers(dets, want),
+              "warm start, front: not bit-identical to the in-process queue")
+
+        mats = det_serve._random_queue(512, 8, 32, 0)
+        grads = det_serve._grad_mix(512, 0.25, 0)
+        policy = BucketPolicy(max_batch=64, mode="merge")
+        with DetFront(workers=1, policy=policy, device="cuda",
+                      persist_dir=str(store), accept="127.0.0.1:0") as front:
+            got = [f.result(timeout=300)
+                   for f in front.submit_many(mats[:256], grads[:256])]
+            entries = front._prefill_entries()
+            check(bool(entries), "warm start, join: no live families")
+            joiner = threading.Thread(
+                target=T.run_worker_client, args=(front.accept_address,),
+                kwargs={"log": lambda *a, **k: None}, daemon=True)
+            t0 = time.perf_counter()
+            joiner.start()
+            deadline = time.monotonic() + 120
+            while len(front.alive_workers) != 2:
+                check(time.monotonic() < deadline,
+                      "warm start, join: the joiner was never admitted")
+                time.sleep(0.05)
+            admitted = time.perf_counter() - t0
+            snap = front.snapshot(timeout=60)
+            wid = [w for w in front.alive_workers if w != 0][0]
+            jpc = snap["workers"][wid]["plan_cache"]
+            print(f"warm start, join: {len(entries)} families shipped; the "
+                  f"joiner admitted {admitted:.3f} s after it dialed, its "
+                  f"first snapshot: {jpc['size']} plans, store_hits "
+                  f"{jpc['store_hits']}, store_misses "
+                  f"{jpc['store_misses']}", flush=True)
+            check(jpc["store_hits"] >= 1 and jpc["size"] == len(entries),
+                  f"warm start, join: {jpc}")
+            got += [f.result(timeout=300)
+                    for f in front.submit_many(mats[256:], grads[256:])]
+        joiner.join(timeout=60)
+        check(not joiner.is_alive(), "warm start, join: the joiner hangs")
+        check(same_answers(got, want),
+              "warm start, join: not bit-identical to the in-process queue")
+
+    for B, m, n in [(64, 8, 20), (16, 20, 24)]:
+        plan = aot_compile_batched(m, n, B)
+        As = torch.randn(B, m, n, device="cuda", generator=gen)
+        cts = torch.randn(B, device="cuda", generator=gen)
+        reset_launch_counts()
+        value, grad = plan(As), plan.grad(As, cts)
+        launched = (k1.launches, k3.launches)
+        T_ = As.clone().requires_grad_(True)
+        ref = radic_det_batched(T_)
+        (ref_grad,) = torch.autograd.grad(ref, T_, grad_outputs=cts)
+        torch.cuda.synchronize()
+        print(f"aot_compile_batched({m}, {n}, {B}): K1 {launched[0]} and "
+              f"K3 {launched[1]} launches (wide {k1.wide_launches}/"
+              f"{k3.wide_launches} of all four); value and grad equal "
+              "radic_det_batched's bit for bit", flush=True)
+        check(launched == (1, 1) and k1.launches == k3.launches == 2
+              and k1.wide_launches == k3.wide_launches == 2 * (m > 16),
+              f"aot ({m}, {n}): launches {launched}, then "
+              f"{(k1.launches, k3.launches)}")
+        check(torch.equal(value, ref.detach()) and torch.equal(grad,
+                                                                 ref_grad),
+              f"aot ({m}, {n}): not bit-identical to radic_det_batched")
+        try:
+            plan(As[:-1])
+            check(False, f"aot ({m}, {n}) took a batch of another size")
+        except TypeError:
+            pass
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = {"w": torch.randn(64, 33, device="cuda", generator=gen),
+                "opt": [torch.randn(7, device="cuda", generator=gen).double(),
+                        torch.arange(-5, 5, device="cuda",
+                                     dtype=torch.int32)],
+                "h": torch.randn(16, 16, device="cuda",
+                                 generator=gen).to(torch.bfloat16)}
+        manager = CheckpointManager(tmp)
+        manager.save_async(3, tree)
+        for device in ("cuda", "cpu"):
+            step, out = manager.restore(tree, device=device)
+            ok = step == 3 and all(
+                a.dtype == b.dtype and b.device.type == device
+                and torch.equal(a.cpu(), b.cpu())
+                for a, b in zip((tree["w"], *tree["opt"], tree["h"]),
+                                (out["w"], *out["opt"], out["h"])))
+            check(ok, f"checkpoint restored on {device}: not bit for bit")
+        print("checkpoint: cuda tensors (float32, float64, int32, bfloat16) "
+              "saved asynchronously, restored on cuda and on cpu bit for "
+              "bit", flush=True)
+
+
 def phase_times(gen: torch.Generator, serve: dict, k2_big,
                 grad_A: torch.Tensor) -> dict:
     from repro_torch.core import radic_det
@@ -1835,6 +2086,8 @@ def main() -> int:
     done("11 wide serving")
     phase_front()
     done("12 the front")
+    phase_warm_start(gen)
+    done("13 warm start")
     times = phase_times(gen, serve, k2["big"], autograd["A"])
     done("9 times")
     csrc = "src/repro_torch/kernels/csrc/"

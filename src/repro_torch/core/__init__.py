@@ -6,8 +6,9 @@ from .pascal import binom_table, comb, paper_table
 from .unrank import (first_member, last_member, rank_py, rank_torch,
                      successor_py, successor_torch, unrank_py, unrank_torch)
 from .paper_reference import combinatorial_addition, grain_sequence
-from .radic import (radic_det, radic_det_batched, radic_sign,
-                    signed_minor_sum, signed_minor_sum_batched)
+from .radic import (aot_compile_batched, make_batched_evaluator, radic_det,
+                    radic_det_batched, radic_sign, signed_minor_sum,
+                    signed_minor_sum_batched)
 from .engine import (DetEngine, DetPlan, PlanKey, default_engine,
                      plan_statics, rank_table, set_default_engine,
                      stable_key_hash, validate_rank_space)
@@ -18,7 +19,8 @@ __all__ = [
     "first_member", "last_member", "rank_py", "rank_torch",
     "successor_py", "successor_torch", "unrank_py", "unrank_torch",
     "combinatorial_addition", "grain_sequence",
-    "radic_det", "radic_det_batched",
+    "aot_compile_batched", "make_batched_evaluator", "radic_det",
+    "radic_det_batched",
     "radic_sign", "signed_minor_sum", "signed_minor_sum_batched",
     "DetEngine", "DetPlan", "PlanKey", "default_engine",
     "set_default_engine", "plan_statics", "rank_table",

@@ -31,8 +31,19 @@ whose backward is the plan's ``grad_executable``; ``radic_det`` and
 backend.  The Function is ``once_differentiable``, like the reference's
 kernel backend.
 
-Not in this module yet: mesh plans and the durable plan store
-(``persist_dir``/``prefill``).
+A plan pinned to a ``capacity`` takes only a batch of that size and the
+plan's dtype (``TypeError`` otherwise), as the reference's AOT-lowered
+program does; ``capacity=None`` takes any batch.
+
+``DetEngine(persist_dir=...)`` opens the durable plan store
+(DESIGN_PERSIST.md): cache misses consult it, fresh builds write their
+key back asynchronously, and ``prefill`` warms the cache from it.  The
+port has no executable to serialize, so every record is metadata only
+and a store hit re-plans from statics, as the reference does with its
+export seam off; the store also houses the kernel library
+(``kernels._build.use_store_dir``), which is what a warm start skips.
+
+Not in this module yet: mesh plans.
 """
 
 from __future__ import annotations
@@ -229,7 +240,16 @@ class DetPlan:
     def _on_device(self, A) -> torch.Tensor:
         if not isinstance(A, torch.Tensor):
             A = torch.as_tensor(np.asarray(A))
-        return A.to(self.device)
+        A = A.to(self.device)
+        cap = self.key.capacity
+        if cap is not None and not self.degenerate and (
+                tuple(A.shape) != (cap, self.m, self.n)
+                or dtype_name(A.dtype) != self.key.dtype):
+            # the reference's AOT program refuses other argument types
+            raise TypeError(
+                f"plan pinned to {self.key.dtype}[{cap},{self.m},{self.n}] "
+                f"called with {dtype_name(A.dtype)}{list(A.shape)}")
+        return A
 
     def __call__(self, A) -> torch.Tensor:
         return self.executable(self._on_device(A))
@@ -261,9 +281,12 @@ class DetEngine:
         "_hits": ("_lock",),
         "_misses": ("_lock",),
         "_evictions": ("_lock",),
+        "_store_hits": ("_lock",),
+        "_store_misses": ("_lock",),
     }
 
-    def __init__(self, max_plans: int = 128):
+    def __init__(self, max_plans: int = 128,
+                 persist_dir: str | None = None):
         if max_plans < 1:
             raise ValueError("max_plans must be >= 1")
         self.max_plans = max_plans
@@ -272,6 +295,19 @@ class DetEngine:
         self._hits = 0
         self._misses = 0
         self._evictions = 0
+        self._store_hits = 0
+        self._store_misses = 0
+        # Optional durable plan store (DESIGN_PERSIST.md): consulted on
+        # cache misses, written back asynchronously after fresh builds.
+        self.store = None
+        if persist_dir is not None:
+            from repro_torch.checkpoint.plan_store import PlanStore
+            from repro_torch.kernels import _build
+            self.store = PlanStore(persist_dir, env=_env_stamp())
+            # the store houses the kernel library: a warm start loads it
+            # instead of running nvcc (the reference points jax's
+            # compilation cache there)
+            _build.use_store_dir(persist_dir)
 
     # ------------------------------------------------------------- planning
     def plan(self, m: int, n: int, *, batched: bool = True,
@@ -299,7 +335,18 @@ class DetEngine:
                 self._plans.move_to_end(key)
                 self._hits += 1
                 return plan
-        built = self._build(key)
+        built = None
+        if self.store is not None:
+            built = self._restore_from_store(key)
+            with self._lock:
+                if built is not None:
+                    self._store_hits += 1
+                else:
+                    self._store_misses += 1
+        if built is None:
+            built = self._build(key)
+            if self.store is not None:
+                self._persist_async(key, built)
         with self._lock:
             plan = self._plans.get(key)
             if plan is not None:  # racing build: first insert wins
@@ -318,7 +365,9 @@ class DetEngine:
         with self._lock:
             return {"size": len(self._plans), "max_plans": self.max_plans,
                     "hits": self._hits, "misses": self._misses,
-                    "evictions": self._evictions}
+                    "evictions": self._evictions,
+                    "store_hits": self._store_hits,
+                    "store_misses": self._store_misses}
 
     def cached_keys(self) -> list[PlanKey]:
         """LRU order, oldest first (introspection/tests)."""
@@ -328,6 +377,89 @@ class DetEngine:
     def clear(self):
         with self._lock:
             self._plans.clear()
+
+    # ------------------------------------------------- persistence (store)
+    #
+    # A store *hit* means the store held a valid record for this exact
+    # key; the plan is then re-planned from statics (the port has no
+    # executable to serialize).  What a warm start saves is the kernel
+    # library's build, which the store houses, and the first request's
+    # planning, which prefill moves before admission.
+
+    @staticmethod
+    def _key_meta(key: PlanKey) -> dict:
+        """Plain-JSON form of a PlanKey — the store's record of *what*
+        was planned, sufficient to re-plan it elsewhere.  ``device``
+        stands where the reference's record has ``x64``."""
+        return {"m": key.m, "n": key.n, "batched": key.batched,
+                "capacity": key.capacity, "dtype": key.dtype,
+                "backend": key.backend, "chunk": key.chunk,
+                "kahan": key.kahan, "device": key.device}
+
+    @staticmethod
+    def _plan_kwargs(meta) -> dict | None:
+        """Decode a stored/wire key meta back into ``plan()`` kwargs;
+        None if malformed."""
+        if not isinstance(meta, dict):
+            return None
+        try:
+            cap = meta.get("capacity")
+            return dict(
+                m=int(meta["m"]), n=int(meta["n"]),
+                batched=bool(meta.get("batched", True)),
+                capacity=None if cap is None else int(cap),
+                dtype=str(meta.get("dtype", "float32")),
+                chunk=int(meta.get("chunk", 2048)),
+                backend=str(meta.get("backend", "cuda")),
+                kahan=bool(meta.get("kahan", False)),
+                device=str(meta["device"]))
+        except (KeyError, TypeError, ValueError):
+            return None
+
+    def _restore_from_store(self, key: PlanKey) -> DetPlan | None:
+        rec = self.store.get(stable_key_hash(key))
+        if rec is None:
+            return None
+        meta, _ = rec
+        if meta.get("key") != self._key_meta(key):
+            return None     # hash collision or corrupt entry: miss
+        return self._build(key)
+
+    def _persist_async(self, key: PlanKey, plan: DetPlan) -> None:
+        """Enqueue a store write-back for a freshly built plan."""
+        meta = {"key": self._key_meta(key), "total": plan.total,
+                "chunk": plan.chunk, "degenerate": plan.degenerate}
+        self.store.put_async(stable_key_hash(key), meta)
+
+    def flush_store(self) -> None:
+        """Block until pending store write-backs land (tests/shutdown)."""
+        if self.store is not None:
+            self.store.flush()
+
+    def prefill(self, families=None) -> int:
+        """Warm the plan cache — store first, plan second.
+
+        ``families``: iterable of key-meta dicts; with None, every family
+        the store holds is planned.  Malformed entries and plan failures
+        (e.g. a family recorded on a device this host lacks) are
+        skipped.  Returns the number of entries planned (cache hits
+        included — already warm counts as warm).
+        """
+        if families is None:
+            if self.store is None:
+                return 0
+            families = [m.get("key") for m in self.store.families()]
+        warmed = 0
+        for meta in families:
+            kw = self._plan_kwargs(meta)
+            if kw is None:
+                continue
+            try:
+                self.plan(**kw)
+                warmed += 1
+            except Exception:   # noqa: BLE001 — prefill is best-effort
+                continue
+        return warmed
 
     # ------------------------------------------------------------- builders
     def _build(self, key: PlanKey) -> DetPlan:
@@ -387,6 +519,17 @@ class DetEngine:
                        chunk=int(min(key.chunk, max(total, 1))),
                        degenerate=False, table=table, executable=execute,
                        grad_executable=grad_execute)
+
+
+def _env_stamp() -> dict:
+    """The environment a stored plan was made in: another torch, CUDA,
+    card or kernel source makes every record a miss."""
+    from repro_torch.kernels import _build
+    return {"torch": torch.__version__,
+            "cuda": torch.version.cuda or "none",
+            "device": (torch.cuda.get_device_name(0)
+                       if torch.cuda.is_available() else "cpu"),
+            "kernels": _build._digest()}
 
 
 # ------------------------------------------------------------ default engine

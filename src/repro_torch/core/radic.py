@@ -29,7 +29,8 @@ import torch
 
 from .unrank import unrank_torch
 
-__all__ = ["radic_det", "radic_det_batched", "signed_minor_sum",
+__all__ = ["radic_det", "radic_det_batched", "make_batched_evaluator",
+           "aot_compile_batched", "signed_minor_sum",
            "signed_minor_sum_batched", "signed_minor_pullback_batched",
            "cofactors", "radic_sign", "resolve_device"]
 
@@ -292,6 +293,40 @@ def radic_det(A, *, chunk: int = 2048, kahan: bool = False,
     return default_engine().plan(
         m, n, batched=False, dtype=A.dtype, chunk=chunk, kahan=kahan,
         backend=backend, device=dev).differentiable(A)
+
+
+def make_batched_evaluator(m: int, n: int, *, chunk: int = 2048,
+                           backend: str = "cuda", device=None):
+    """Bind the per-shape state of :func:`radic_det_batched` once.
+
+    Returns the :class:`~repro_torch.core.engine.DetPlan` for this shape —
+    a callable ``evaluate(As: (B, m, n)) -> (B,)`` for any B.  The Pascal
+    table, the C(n, m) rank count and the clamped chunk are computed at
+    plan time, and the plan runs the same executable as
+    :func:`radic_det_batched`, so results are bit-identical to it.
+    ``m > n`` is a zeros program on the plan's device.
+    """
+    from .engine import default_engine  # lazy: engine builds on this module
+    return default_engine().plan(m, n, batched=True, chunk=chunk,
+                                 backend=backend, device=device)
+
+
+def aot_compile_batched(m: int, n: int, capacity: int, dtype=np.float32, *,
+                        chunk: int = 2048, backend: str = "cuda",
+                        device=None):
+    """The plan pinned to one ``(capacity, m, n)`` batch of ``dtype``.
+
+    The reference AOT-lowers its jnp program here; the port has nothing
+    to compile per shape, so this is the capacity-keyed plan of
+    :func:`make_batched_evaluator`: the same executables (bit-identical
+    results), ``exe(As: (capacity, m, n)) -> (capacity,)`` and
+    ``exe.grad(As, cts)``, and a batch of another size or dtype raises
+    ``TypeError`` as the reference's compiled program does.
+    """
+    from .engine import default_engine  # lazy: engine builds on this module
+    return default_engine().plan(
+        m, n, batched=True, capacity=capacity, dtype=dtype, chunk=chunk,
+        backend=backend, device=device)
 
 
 def radic_det_batched(As, *, chunk: int = 2048, backend: str = "cuda",

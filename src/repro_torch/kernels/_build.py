@@ -8,6 +8,14 @@ shared library with a plain C interface, which is loaded with ``ctypes``
 ``.gitignore``), named by a hash of the sources, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  A missing ``nvcc`` or a
 failed build raises with the compiler's output; nothing falls back.
+
+A plan store houses the library too (:func:`use_store_dir`, the
+counterpart of the reference's ``compat.enable_compilation_cache``):
+``load`` then looks in ``<persist_dir>/kernels/`` first, and a library
+missing there lands there atomically, copied from ``build/repro_torch/``
+or built in place.  A process started over a populated store, from a
+checkout that never built, loads the library without running ``nvcc``.
+A store that cannot be written raises.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load", "build_info", "CSRC", "BUILD_DIR"]
+__all__ = ["load", "build_info", "use_store_dir", "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -32,6 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _info: dict = {}
+_store_dir: Path | None = None   # ``<persist_dir>/kernels``, if a store
 
 
 def _nvcc() -> str:
@@ -139,24 +148,57 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def use_store_dir(persist_dir) -> bool:
+    """Make :func:`load` find the library under ``<persist_dir>/kernels/``
+    (process-global).  Deferential, as the reference's
+    ``enable_compilation_cache``: once the library is loaded this returns
+    False and changes nothing; a store named earlier keeps the library."""
+    global _store_dir
+    with _lock:
+        if _lib is not None:
+            return False
+        if _store_dir is None:
+            _store_dir = Path(persist_dir) / "kernels"
+        return True
+
+
+def _copy(src: Path, out: Path) -> None:
+    """Copy ``src`` to ``out`` atomically: a concurrent loader sees all
+    or nothing."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    shutil.copyfile(src, tmp)
+    os.replace(tmp, out)
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call (thread-safe)."""
     global _lib
     with _lock:
         if _lib is None:
-            out = BUILD_DIR / f"libradic_{_digest()}.so"
+            local = BUILD_DIR / f"libradic_{_digest()}.so"
+            out = local if _store_dir is None else _store_dir / local.name
             t0 = time.perf_counter()
-            built = not out.exists()
-            log, each = _compile(out) if built else ("", {})
-            _info.update(path=str(out), seconds=time.perf_counter() - t0,
-                         log=log, built=built, each=each)
+            log, each, origin = "", {}, "loaded"
+            if not out.exists():
+                if out != local and local.exists():
+                    _copy(local, out)
+                    origin = "copied"
+                else:
+                    log, each = _compile(out)
+                    origin = "built"
             _lib = _bind(ctypes.CDLL(str(out)))
+            _info.update(path=str(out), seconds=time.perf_counter() - t0,
+                         log=log, built=origin == "built", origin=origin,
+                         each=each)
         return _lib
 
 
 def build_info() -> dict:
-    """Path, build seconds (``each``: per source, from the start of the
-    parallel compile to its end), and compiler log of the loaded
-    library."""
+    """Path, seconds from the call to the library bound (``each``: per
+    source, from the start of the parallel compile to its end), compiler
+    log, and ``origin`` of the loaded library: ``"built"`` by ``nvcc``,
+    ``"copied"`` into the store from ``build/repro_torch/``, or
+    ``"loaded"`` as it was found."""
     with _lock:
         return dict(_info)

@@ -2,9 +2,9 @@
 
 Port of ``repro/launch/autoscale.py``, unchanged in its decisions: the
 same snapshots and clock give the same actions.  The cold set is read
-from each worker's ``DetQueue.snapshot()["plan_cache"]`` hit counts; the
-port's queues have no plan store yet, so ``store_hits`` is 0 and a
-worker is cold exactly while its engine's own hit rate is low.  The
+from each worker's ``DetQueue.snapshot()["plan_cache"]`` hit counts, the
+plan store's ``store_hits`` included, so a worker prefilled from the
+store (``DetFront(persist_dir=...)``) is hot from its first tick.  The
 worker ceiling is the reference's core-count rule, not capped by the
 card: on the card pass an explicit maximum (``det_serve --autoscale N``),
 since every worker holds its own CUDA context on the one card.

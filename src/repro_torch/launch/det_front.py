@@ -4,11 +4,12 @@ Port of ``repro/launch/det_front.py``.  Routing, placement, re-routing,
 the straggler sweep and stats aggregation are the reference's; what
 changes: the front takes ``device`` and hands it to every worker (a
 spawned pool on ``"cuda"`` checks for a card and builds the kernel
-library once, before any worker starts), the routing key's last field
-says whether the family computes in float64 (the dtype carries the
-precision; the reference reads jax's x64 flag there), and the plan
-store's warm start (``persist_dir``/``prefill``) is not ported yet, so
-``snapshot()["front"]["prefill"]`` is always ``False``.
+library once, before any worker starts: into the plan store when there
+is one), and the routing key's last field says whether the family
+computes in float64 (the dtype carries the precision; the reference
+reads jax's x64 flag there).  ``persist_dir``/``prefill`` are the
+reference's warm start (DESIGN_PERSIST.md): workers plan from the store,
+and joiners are shipped the live plan families before admission.
 
 The paper's rank space C(n, m) is a property of the request's *shape*:
 one (m, n) class is one plan, one Pascal table, one entry in the
@@ -421,7 +422,9 @@ class DetFront:
                  straggler_warmup: int = 8,
                  straggler_cooldown_s: float = 5.0,
                  watchdog_s: float | None = None,
-                 shm: bool = False, shm_ring_bytes: int = 8 << 20):
+                 shm: bool = False, shm_ring_bytes: int = 8 << 20,
+                 persist_dir: str | None = None,
+                 prefill: bool | None = None):
         if policy is None:
             policy = BucketPolicy(
                 max_batch=64 if max_batch is None else max_batch)
@@ -447,8 +450,11 @@ class DetFront:
             self.device = resolve_device(self.device)
             if self.device.type == "cuda" and backend == "cuda":
                 # one build for the pool: N workers starting at once
-                # would each run the full parallel nvcc build
+                # would each run the full parallel nvcc build (with a
+                # store, the library lands there and workers load it)
                 from repro_torch.kernels import _build
+                if persist_dir is not None:
+                    _build.use_store_dir(persist_dir)
                 _build.load()
         self._transport = transport
         cfg = WorkerConfig(chunk=int(chunk), backend=backend,
@@ -459,8 +465,15 @@ class DetFront:
                            stage_depth=stage_depth,
                            pipeline_depth=int(pipeline_depth),
                            pin_workers=bool(pin_workers),
-                           device=str(self.device))
+                           device=str(self.device),
+                           persist_dir=persist_dir)
         self._cfg = cfg
+        # plan-family warm-start (DESIGN_PERSIST.md): joining workers
+        # are shipped the live routing working set as a prefill list so
+        # they plan (store first, plan second) before admission.
+        # Default: on whenever a plan store is configured.
+        self._prefill_enabled = (bool(prefill) if prefill is not None
+                                 else persist_dir is not None)
         # workers the autoscaler currently judges cold (low plan-cache
         # hit rate, typically still planning after a join): shielded
         # from the straggler sweep so warm-up latency is never read as
@@ -999,7 +1012,7 @@ class DetFront:
                                       if w.alive and w.timer.ema is not None}
             front["accept_address"] = self.accept_address
             front["cold_workers"] = sorted(self._cold_wids)
-            front["prefill"] = False  # the plan store is not ported
+            front["prefill"] = self._prefill_enabled
         return {"front": front, "workers": reports,
                 "total": self._aggregate(reports)}
 
@@ -1034,6 +1047,18 @@ class DetFront:
         return total
 
     # ----------------------------------------------------- dynamic membership
+    def _prefill_entries(self) -> list:
+        """The live routing working set as a wire-plain prefill list.
+
+        One ``(m, n, capacity)`` tuple per currently-assigned plan
+        family, least-recently-used first (the joiner warms hot
+        families last, so they are freshest in its LRU).  dtype and
+        device ride the worker config, not the list.
+        """
+        with self._lock:
+            return [(int(k[0]), int(k[1]), int(k[2]))
+                    for k in self._placer.owner_map]
+
     def mark_cold_workers(self, wids) -> None:
         """Record which workers the autoscaler currently judges cold
         (plan-cache hit rate below its threshold).  Cold workers are
@@ -1094,10 +1119,12 @@ class DetFront:
         daemon addresses), so the result can be shorter than asked.
         """
         admitted: list[int] = []
+        prefill = (self._prefill_entries() or None) \
+            if self._prefill_enabled else None
         for _ in range(int(count)):
             wid = self._reserve_wid()
             try:
-                link = self._transport.dial_new(wid)
+                link = self._transport.dial_new(wid, prefill)
             except TransportError:
                 break
             if link is None:
@@ -1128,7 +1155,16 @@ class DetFront:
                 conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                 wid = self._reserve_wid()
                 decoder = FrameDecoder()
-                conn.sendall(encode_frame(("hello", wid, self._wire_cfg)))
+                wire_cfg = self._wire_cfg
+                if self._prefill_enabled:
+                    entries = self._prefill_entries()
+                    if entries:
+                        # ship the live working set: the joiner warms
+                        # these families before it answers ready (and
+                        # is only admitted on ready)
+                        wire_cfg = dict(wire_cfg)
+                        wire_cfg["prefill"] = entries
+                conn.sendall(encode_frame(("hello", wid, wire_cfg)))
                 msg = _read_frame(conn, decoder, timeout=30.0, skip_hb=True)
                 if msg is None or msg[0] != "ready" or msg[1] != wid:
                     conn.close()

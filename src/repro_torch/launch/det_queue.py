@@ -34,6 +34,8 @@ under overload.  Gradient requests (``submit(A, grad=True,
 cotangent=ct)``) ride the same pipeline in batches of their own: the
 stager dispatches the plan's cofactor-form VJP (``DetPlan.grad``) with the
 batch's cotangents, and each request resolves to its ``(m, n)`` array.
+``persist_dir`` opens the engine's plan store and ``prefill`` warms plan
+families before traffic (DESIGN_PERSIST.md).
 """
 
 from __future__ import annotations
@@ -376,7 +378,8 @@ class DetQueue:
                  stage_depth: int | None = None,
                  response_buffer: int = 65536,
                  max_pending: int | None = None,
-                 engine: DetEngine | None = None, plan_cache: int = 128):
+                 engine: DetEngine | None = None, plan_cache: int = 128,
+                 persist_dir: str | None = None):
         if policy is None:
             policy = BucketPolicy(
                 max_batch=64 if max_batch is None else max_batch)
@@ -407,9 +410,12 @@ class DetQueue:
         self.max_pending = max_pending
         # the dispatcher holds DetPlans, not raw lambdas: the engine owns
         # every executable behind one LRU-bounded cache (long-tail shape
-        # traffic cannot grow the plan map without limit)
+        # traffic cannot grow the plan map without limit).
+        # ``persist_dir`` turns on the durable plan store
+        # (DESIGN_PERSIST.md): misses consult it before planning and
+        # fresh plans write back in the store's background thread.
         self.engine = engine if engine is not None \
-            else DetEngine(max_plans=plan_cache)
+            else DetEngine(max_plans=plan_cache, persist_dir=persist_dir)
 
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
@@ -623,6 +629,9 @@ class DetQueue:
             t.join(timeout=timeout)
         with self._resp_cv:  # wake any poller blocked on a closed queue
             self._resp_cv.notify_all()
+        # plan persistence is write-behind (DESIGN_PERSIST.md): drain the
+        # store's writer so a short-lived process still lands its plans
+        self.engine.flush_store()
 
     def __enter__(self):
         return self
@@ -634,13 +643,43 @@ class DetQueue:
     # ----------------------------------------------------------- pipeline
     def _plan(self, shape: tuple[int, int], capacity: int):
         """The :class:`~repro_torch.core.engine.DetPlan` for one device
-        batch, keyed by its exact capacity.  The cache is LRU-bounded, so
-        a long tail of request shapes re-plans instead of growing without
-        limit."""
+        batch.  Keyed as the reference keys it: the ``torch`` backend (the
+        jnp counterpart) pins the batch's capacity, the ``cuda`` backend
+        (the pallas counterpart) plans one shape for every batch size, so
+        the plan cache counts what the reference's does on the same
+        traffic.  The cache is LRU-bounded, so a long tail of request
+        shapes re-plans instead of growing without limit."""
         m, n = shape
         return self.engine.plan(
-            m, n, batched=True, capacity=capacity, dtype=self.dtype,
-            chunk=self.chunk, backend=self.backend, device=self.device)
+            m, n, batched=True,
+            capacity=capacity if self.backend == "torch" else None,
+            dtype=self.dtype, chunk=self.chunk, backend=self.backend,
+            device=self.device)
+
+    def prefill(self, entries) -> int:
+        """Warm the engine for expected plan families before traffic.
+
+        ``entries``: iterable of ``(m, n, capacity)`` — the wire form of
+        a join handshake's prefill list (capacity is the policy bound;
+        dtype/backend/chunk/device come from this queue's own config,
+        exactly as ``_plan`` would bind them, so a prefetched plan IS the
+        plan the first real batch will hit).  With a plan store
+        configured the warm path is store-first, plan-second.  Malformed
+        or unplannable entries are skipped; returns the number warmed.
+        """
+        warmed = 0
+        for e in entries:
+            try:
+                m, n, cap = int(e[0]), int(e[1]), e[2]
+                cap = None if cap is None else int(cap)
+            except (TypeError, ValueError, IndexError):
+                continue
+            try:
+                self._plan((m, n), cap)
+                warmed += 1
+            except Exception:   # noqa: BLE001 — prefill is best-effort
+                continue
+        return warmed
 
     _resolve = staticmethod(resolve_future)
 

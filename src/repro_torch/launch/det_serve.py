@@ -37,8 +37,15 @@ plan's backward (the CUDA backward kernel on the ``cuda`` backend).
 There is no warm pass: nothing is compiled per shape, and the kernel
 library is built before the timed pass (a front's timed pass starts once
 every worker has answered a stats request, that is, has built its
-queue).  The reference's ``--plan-store`` and ``--prefill`` (the plan
-store and its warm start) are not ported yet.
+queue).
+
+``--plan-store DIR`` is the reference's durable plan store
+(DESIGN_PERSIST.md) on the one-queue path and the front's: plan records
+persist under DIR, the next run's plan-cache misses consult them, and
+the kernel library is kept in ``DIR/kernels/``, so a run from a
+checkout that never built loads it instead of running ``nvcc``.
+``--prefill`` (on by default with a store) ships joining workers the
+front's live plan families, which they warm before admission.
 
 ``--verify`` checks every result on a different code path: a value
 against the exact enumeration oracle (``radic_det_oracle``) when its rank
@@ -202,7 +209,9 @@ def _serve_front(front, mats, label: str, num: int, backend: str,
           f"backlog_peak={tot['backlog_peak']} "
           f"plan_cache={tot['plan_cache']['size']} "
           f"(hits={tot['plan_cache']['hits']} "
-          f"misses={tot['plan_cache']['misses']})")
+          f"misses={tot['plan_cache']['misses']} "
+          f"store_hits={tot['plan_cache']['store_hits']} "
+          f"store_misses={tot['plan_cache']['store_misses']})")
     print("worker,routed,completed,batches,dispatches,grad_dispatches,shed,"
           "backlog_peak,plans")
     for wid, snap in sorted(stats["workers"].items()):
@@ -322,6 +331,17 @@ def main(argv=None):
                          "to the (m, n) ndarray d(det)/dA instead of a "
                          "float — async and front paths only "
                          "(DESIGN_GRAD.md)")
+    ap.add_argument("--plan-store", type=str, default="", metavar="DIR",
+                    help="persist plan records under DIR and restore "
+                         "them on the next run (plan-cache misses consult "
+                         "the store before planning; writes are "
+                         "asynchronous); DIR/kernels/ keeps the kernel "
+                         "library")
+    ap.add_argument("--prefill", action="store_true",
+                    help="--workers/--connect: ship joining workers the "
+                         "front's live plan families so they warm up "
+                         "(store first, plan second) before admission "
+                         "(on by default when --plan-store is given)")
     ap.add_argument("--verify", action="store_true",
                     help="cross-check every result: values against the "
                          "exact oracle (float64 torch past "
@@ -358,7 +378,9 @@ def main(argv=None):
     front_kw = dict(chunk=args.chunk, backend=args.backend, policy=policy,
                     device=device, max_pending=args.max_pending or None,
                     ack_timeout_s=args.ack_timeout or None,
-                    accept=args.accept or None)
+                    accept=args.accept or None,
+                    persist_dir=args.plan_store or None,
+                    prefill=args.prefill or None)
     if args.connect:
         from repro_torch.launch.det_front import DetFront
         from repro_torch.launch.transport import SocketTransport
@@ -392,10 +414,11 @@ def main(argv=None):
                   f"{s['wall_s']:.4f},{s['mats_per_s']:.1f},"
                   f"{s['ranks_per_s']:.3e}")
     else:
-        _warm_device(device, args.backend)
         with DetQueue(chunk=args.chunk, backend=args.backend, policy=policy,
-                      max_pending=args.max_pending or None,
-                      device=device) as q:
+                      max_pending=args.max_pending or None, device=device,
+                      persist_dir=args.plan_store or None) as q:
+            # after the queue: its engine points the build at the store
+            _warm_device(device, args.backend)
             t0 = time.perf_counter()
             dets = _serve_tolerating_sheds(q, mats, grads)
             wall = time.perf_counter() - t0
@@ -408,7 +431,9 @@ def main(argv=None):
               f"padded_slots={stats['padded_slots']} "
               f"shed={stats['shed']} backlog_peak={stats['backlog_peak']} "
               f"plan_cache={stats['plan_cache']['size']}/"
-              f"{stats['plan_cache']['max_plans']}")
+              f"{stats['plan_cache']['max_plans']} "
+              f"store_hits={stats['plan_cache']['store_hits']} "
+              f"store_misses={stats['plan_cache']['store_misses']}")
         print("bucket_m,bucket_n,count,batches,ranks,mean_wait_s")
         for (m, n), b in sorted(stats["buckets"].items()):
             print(f"{m},{n},{b['count']},{b['batches']},{b['ranks']},"

@@ -6,11 +6,11 @@ What changes: a worker builds the port's
 :class:`~repro_torch.launch.det_queue.DetQueue` on the device its
 :class:`WorkerConfig` names (the dtype rides the config, so there is no
 x64 flag to align), local workers are always ``spawn``ed (a forked child
-would inherit its parent's CUDA state), a worker that cannot build its
+would inherit its parent's CUDA state), and a worker that cannot build its
 queue answers every request with a :class:`WorkerStartupError` (nothing
-falls back to the CPU), and the plan store's warm-start ``prefill`` (the
-reference's ``persist_dir`` and ``DetQueue.prefill``) is not ported yet:
-a spawn or hello that carries one raises ``NotImplementedError``.
+falls back to the CPU).  ``WorkerConfig.persist_dir`` names the plan
+store, and a spawn or hello that carries a ``prefill`` list warms those
+plan families (store first, plan second) before the worker answers.
 
 ``DetFront`` (DESIGN_FRONT.md) routes requests by canonical plan key
 over a consistent-hash ring of workers, each running one
@@ -220,6 +220,10 @@ class WorkerConfig:
     pipeline_depth: int
     pin_workers: bool
     device: str = "cuda"
+    # durable plan store root (DESIGN_PERSIST.md); a plain string so it
+    # rides the wire dict like every other field.  Workers on other
+    # hosts simply see an empty/fresh store at that path.
+    persist_dir: str | None = None
 
     def to_wire(self) -> dict:
         d = asdict(self)
@@ -238,27 +242,22 @@ class WorkerConfig:
         (``resolve_device``).  On the card it creates the worker's CUDA
         context before it serves, and loads the kernel library (built by
         the front or the daemon before any worker started, so this finds
-        it by its hash)."""
+        it by its hash; with a plan store, in the store)."""
         device = resolve_device(self.device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
             if self.backend == "cuda":
                 from repro_torch.kernels import _build
+                if self.persist_dir is not None:
+                    _build.use_store_dir(self.persist_dir)
                 _build.load()
         return DetQueue(chunk=self.chunk, backend=self.backend,
                         dtype=np.dtype(self.dtype), policy=self.policy,
                         max_pending=self.max_pending,
                         plan_cache=self.plan_cache, linger_s=self.linger_s,
                         stage_depth=self.stage_depth,
-                        pipeline_depth=self.pipeline_depth, device=device)
-
-
-def _refuse_prefill(prefill) -> None:
-    """A warm-start prefill needs the plan store, which is not ported."""
-    if prefill:
-        raise NotImplementedError(
-            "warm-start prefill needs the plan store (DetQueue.prefill, "
-            "persist_dir), which is ROADMAP.md module 7 and not ported yet")
+                        pipeline_depth=self.pipeline_depth, device=device,
+                        persist_dir=self.persist_dir)
 
 
 class _FailedQueue:
@@ -402,10 +401,10 @@ def _local_worker_main(worker_id: int, cfg: WorkerConfig, req_q, resp_conn,
                        shm_name: str | None = None, prefill=None):
     """Local worker process entry point (module-level: spawn-safe).
 
-    A non-empty ``prefill`` raises ``NotImplementedError`` (the plan
-    store is not ported).  A queue that cannot be built (no card, no
-    kernel library) leaves the worker serving :class:`_FailedQueue`:
-    every request it is sent fails with the cause.
+    A non-empty ``prefill`` warms those plan families (store first, plan
+    second) before the worker consumes any request.  A queue that cannot
+    be built (no card, no kernel library) leaves the worker serving
+    :class:`_FailedQueue`: every request it is sent fails with the cause.
 
     With ``shm_name`` (the :class:`ShmTransport` path) the Queue/Pipe
     control plane is unchanged, but batch payloads may arrive as shm
@@ -416,7 +415,6 @@ def _local_worker_main(worker_id: int, cfg: WorkerConfig, req_q, resp_conn,
     """
     import os
 
-    _refuse_prefill(prefill)
     if cfg.pin_workers and hasattr(os, "sched_setaffinity"):
         # one dedicated core per worker (round-robin): N compute-heavy
         # workers on an N-core host otherwise migrate across cores and
@@ -451,6 +449,11 @@ def _local_worker_main(worker_id: int, cfg: WorkerConfig, req_q, resp_conn,
         q = cfg.make_queue()
     except Exception as e:  # noqa: BLE001 — reported on every request
         q = _FailedQueue(worker_id, e)
+    else:
+        if prefill:
+            # warm expected plan families (store first, plan second)
+            # before consuming any request — a grown worker joins hot
+            q.prefill(prefill)
     try:
         run_worker_loop(worker_id, q, recv, recv_nowait, resp_conn.send)
     finally:
@@ -522,9 +525,10 @@ class Transport:
     the autoscaler's scale-up path): a brand-new peer under a brand-new
     id, admitted to the ring as a live join.
 
-    ``dial_new``'s ``prefill`` is the reference's plan-family warm-start
-    list; the port's workers refuse a non-empty one (the plan store is
-    not ported)."""
+    ``dial_new``'s ``prefill`` is the front's plan-family warm-start
+    list: the new worker plans those families (store first, plan
+    second) *before* reporting for traffic, so a scaled-out worker
+    joins warm (DESIGN_PERSIST.md)."""
 
     def start(self, cfg: WorkerConfig) -> list[WorkerLink]:
         raise NotImplementedError
@@ -1072,8 +1076,8 @@ class SocketTransport(Transport):
     def dial_new(self, wid: int, prefill=None) -> WorkerLink | None:
         """Dial the next standby daemon as a brand-new worker; ``None``
         when no spares remain (the pool is at its physical ceiling).
-        ``prefill`` rides the hello's wire dict, which the port's daemons
-        refuse (the plan store is not ported)."""
+        ``prefill`` rides the hello's wire dict: the daemon warms those
+        plan families before it answers ready."""
         if not hasattr(self, "_wire_cfg") or not self.spare_addresses:
             return None
         addr = self.spare_addresses.pop(0)
@@ -1156,10 +1160,19 @@ def _serve_front_session(conn: socket.socket, addr, log) -> None:
     cfg = WorkerConfig.from_wire(wire_cfg)
     heartbeat_s = float(wire_cfg.get("heartbeat_s", 1.0))
     conn.settimeout(None)
-    _refuse_prefill(wire_cfg.get("prefill"))
     # a queue that cannot be built fails the handshake: the front sees
     # no ready and raises, so the daemon is never admitted
     q = cfg.make_queue()
+    prefill = wire_cfg.get("prefill")
+    if prefill:
+        # The front shipped its live plan-family working set: warm the
+        # engine now (store first, plan second) — strictly before the
+        # ready below, which is what admits this worker to the ring.  A
+        # warm-started joiner therefore never serves a request it hasn't
+        # planned for (DESIGN_PERSIST.md).
+        warmed = q.prefill(prefill)
+        log(f"det-worker: prefilled {warmed}/{len(prefill)} plan "
+            f"families for front {addr}", flush=True)
     log(f"det-worker: serving front {addr} as worker {wid}", flush=True)
 
     wlock = threading.Lock()

@@ -1,10 +1,11 @@
 """Twin of ``tests/test_det_front.py`` for the port's serving front
 (``repro_torch.launch.det_front``), on the CPU (``device="cpu"``: the
-workers run the kernels' plain versions).  The reference's two
-warm-start tests wait for the plan store (ROADMAP.md, module 7).  Added
-here: the front held to the reference's in-process ``DetQueue`` on the
-same seeded inputs, the card check made before any process starts, and
-a worker whose queue cannot be built answering with ``WorkerError``.
+workers run the kernels' plain versions), the two warm-start tests over
+the plan store included (the module's shared front has a store, so its
+snapshot counts store hits and misses).  Added here: the front held to
+the reference's in-process ``DetQueue`` on the same seeded inputs, the
+card check made before any process starts, and a worker whose queue
+cannot be built answering with ``WorkerError``.
 
 The reference's battery:
 
@@ -58,10 +59,19 @@ def _queue_reference(mats, policy=PINNED):
     return dets
 
 
+@pytest.fixture(autouse=True)
+def _restore_kernel_store_dir(monkeypatch):
+    """A queue opened over a plan store points the kernel build at it,
+    process-wide: put the setting back after every test."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "_store_dir", _build._store_dir)
+
+
 @pytest.fixture(scope="module")
-def _front2():
-    with DetFront(workers=2, chunk=CHUNK, policy=PINNED,
-                  device=DEV) as front:
+def _front2(tmp_path_factory):
+    with DetFront(workers=2, chunk=CHUNK, policy=PINNED, device=DEV,
+                  persist_dir=str(tmp_path_factory.mktemp("plans"))) \
+            as front:
         yield front
 
 
@@ -391,19 +401,81 @@ def test_front_stats_aggregation_shape(rng, shared_front):
     assert set(per) <= {0, 1} and len(per) == f["workers_alive"] == 2
     assert tot["backlog_peak"] == max(s["backlog_peak"]
                                       for s in per.values())
-    for key in ("hits", "misses", "evictions", "size"):
+    for key in ("hits", "misses", "evictions", "size",
+                "store_hits", "store_misses"):
         assert tot["plan_cache"][key] == sum(s["plan_cache"][key]
                                              for s in per.values())
-    # the port has no plan store yet: the store counters stay zero
-    assert tot["plan_cache"]["store_hits"] == 0
-    assert tot["plan_cache"]["store_misses"] == 0
+    # the front has a store: every plan-cache miss consulted it
+    pc = tot["plan_cache"]
+    assert pc["misses"] >= 1
+    assert pc["store_hits"] + pc["store_misses"] == pc["misses"]
     assert tot["grad_dispatches"] == sum(s["grad_dispatches"]
                                          for s in per.values())
-    assert f["prefill"] is False and f["cold_workers"] == []
+    assert f["prefill"] is True and f["cold_workers"] == []
     # bucket merge across workers preserves counts
     assert sum(b["count"] for b in tot["buckets"].values()) == 12
 
 
+
+
+# ------------------------------------------------------------ warm start
+def test_front_warm_start_from_plan_store_bit_identical(rng, tmp_path):
+    """A front over a populated plan store restores plans instead of
+    planning afresh (store hits in the aggregated snapshot) and every
+    result stays bit-identical to the cold 1-process DetQueue."""
+    mats = _mats(rng, 20)
+    want = _queue_reference(mats)  # cold reference, no store anywhere
+    store = str(tmp_path / "plans")
+    with DetQueue(chunk=CHUNK, policy=PINNED, device=DEV,
+                  persist_dir=store) as q:
+        q.serve(mats, timeout=300)
+    with DetFront(workers=1, chunk=CHUNK, policy=PINNED, device=DEV,
+                  persist_dir=store) as front:
+        got, stats = front.serve(mats, timeout=300)
+    assert got == want
+    pc = stats["total"]["plan_cache"]
+    assert pc["store_hits"] >= 1 and pc["store_misses"] == 0
+    assert stats["front"]["prefill"] is True  # auto-on with a store
+
+
+def test_front_join_with_prefill_warms_before_admission(rng, tmp_path):
+    """A worker joining via the accept listener with a populated plan
+    store is shipped the front's live plan families in the handshake and
+    warms them (store first) before it is admitted: its very first
+    snapshot shows store hits, and results match the cold join exactly."""
+    import threading
+    import time
+    mats = _mats(rng, 24)
+    want = _queue_reference(mats)
+    store = str(tmp_path / "plans")
+    with DetQueue(chunk=CHUNK, policy=PINNED, device=DEV,
+                  persist_dir=store) as q:
+        q.serve(mats, timeout=300)
+    with DetFront(workers=1, chunk=CHUNK, policy=PINNED, device=DEV,
+                  persist_dir=store, accept="127.0.0.1:0") as front:
+        first = [f.result(timeout=300)
+                 for f in front.submit_many(mats[:12])]
+        assert front._prefill_entries()  # live families to ship
+        joiner = threading.Thread(
+            target=T.run_worker_client, args=(front.accept_address,),
+            kwargs={"log": lambda *a, **k: None}, daemon=True)
+        joiner.start()
+        t0 = time.monotonic()
+        while len(front.alive_workers) != 2:
+            assert time.monotonic() - t0 < 60.0
+            time.sleep(0.05)
+        snap = front.snapshot()
+        joiner_wid = [w for w in front.alive_workers if w != 0][0]
+        jpc = snap["workers"][joiner_wid]["plan_cache"]
+        # admitted already warm: the prefill consulted the store before
+        # the worker answered ready
+        assert jpc["store_hits"] >= 1
+        assert jpc["size"] == len(front._prefill_entries())
+        rest = [f.result(timeout=300)
+                for f in front.submit_many(mats[12:])]
+    joiner.join(timeout=30)
+    assert not joiner.is_alive()
+    assert first + rest == want
 
 
 # ------------------------------------------------ the port against jax

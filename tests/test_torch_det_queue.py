@@ -302,3 +302,53 @@ def test_queue_device_defaults_to_the_card():
         DetQueue()
     with pytest.raises(ValueError):
         DetQueue(max_batch=8, policy=BucketPolicy(max_batch=64), device=CPU)
+
+
+# ------------------------------------------------- plan keys and prefill
+@pytest.mark.parametrize("backend,ref_backend", [("cuda", "pallas"),
+                                                 ("torch", "jnp")])
+def test_plan_cache_counts_equal_reference(backend, ref_backend):
+    """The queue keys its plans as the reference's does: the ``cuda``
+    backend (the pallas counterpart) by shape alone, the ``torch``
+    backend (the jnp counterpart) by shape and the batch's exact
+    capacity.  So the same traffic gives the same plan-cache size, hits,
+    misses and evictions."""
+    mats = _mats(np.random.default_rng(11), 30, SHAPES[:4])
+    pol = dict(max_batch=4, mode="never")
+    with DetQueue(chunk=64, policy=BucketPolicy(**pol), device=CPU,
+                  backend=backend, plan_cache=3) as q:
+        for _ in range(2):
+            q.serve(mats, timeout=120)
+        got = q.snapshot()["plan_cache"]
+    with ref_q.DetQueue(chunk=64, policy=ref_q.BucketPolicy(**pol),
+                        backend=ref_backend, plan_cache=3) as rq:
+        for _ in range(2):
+            rq.serve(mats, timeout=300)
+        want = rq.snapshot()["plan_cache"]
+    keys = ("size", "hits", "misses", "evictions")
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert got["evictions"] > 0 and got["hits"] > 0
+
+
+@pytest.mark.parametrize("backend,pin", [("cuda", False), ("cuda", True),
+                                         ("torch", True)])
+def test_prefilled_family_is_hit_by_the_first_batch(backend, pin):
+    """A family prefilled as the front ships it — ``(m, n, capacity)``
+    with the policy's bound — is a plain cache hit for the first real
+    batch, under the exact-capacity policy (where the ``cuda`` backend
+    keys no capacity) and the pinned one."""
+    from repro_torch.launch.det_front import route_key
+    policy = BucketPolicy(max_batch=CAP, mode="merge", pin_capacity=pin)
+    mats = _mats(np.random.default_rng(12), 3, [(2, 5)])
+    with DetQueue(chunk=64, policy=policy, device=CPU,
+                  backend=backend) as q:
+        entry = route_key((2, 5), policy, np.float32)[:3]
+        assert q.prefill([entry, ("bad",), None]) == 1
+        before = q.engine.cache_info()
+        dets, _ = q.serve(mats, timeout=120)
+        after = q.engine.cache_info()
+    assert after["misses"] == before["misses"] == 1
+    assert after["hits"] == before["hits"] + 1
+    for A, got in zip(mats, dets):
+        want = radic_det_oracle(A)
+        assert abs(got - want) <= 2e-3 * max(1.0, abs(want))

@@ -54,13 +54,31 @@ def test_async_stats_and_shedding(capsys):
     assert stats["completed"] == 5
 
 
-def test_cli_rejects_reference_only_flags():
-    """The plan store's flags wait for its module; the JAX backends do
-    not exist in the port."""
-    for argv in (["--plan-store", "/nonexistent"], ["--prefill"],
-                 ["--backend", "pallas"], ["--backend", "jnp"]):
+@pytest.mark.parametrize("argv", [["--backend", "pallas"],
+                                  ["--backend", "jnp"],
+                                  ["--plan-store", "STORE", "--prefill"]])
+def test_cli_rejects_reference_only_flags(argv, tmp_path, monkeypatch,
+                                          capsys):
+    """The JAX backends do not exist in the port.  The plan store's flags
+    serve on the CPU, and a second run over the same store plans every
+    family from it."""
+    if "--plan-store" not in argv:
         with pytest.raises(SystemExit):
             det_serve.main(["--device", "cpu", *argv])
+        return
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "_store_dir", _build._store_dir)
+    argv = [str(tmp_path) if a == "STORE" else a for a in argv]
+    first, cold = det_serve.main([*ARGS, "--device", "cpu", *argv])
+    second, warm = det_serve.main([*ARGS, "--device", "cpu", *argv])
+    out = capsys.readouterr().out
+    assert re.search(r"store_hits=0 store_misses=[1-9]", out)
+    families = cold["plan_cache"]["misses"]
+    assert cold["plan_cache"]["store_misses"] == families > 0
+    assert warm["plan_cache"]["store_hits"] == families
+    assert warm["plan_cache"]["store_misses"] == 0
+    assert second == first
+    assert len(os.listdir(tmp_path)) == families  # one record a family
 
 
 def test_grad_mix_equals_reference_and_verifies(capsys):

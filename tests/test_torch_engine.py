@@ -225,3 +225,120 @@ def test_default_engine_is_shared_and_swappable():
     finally:
         set_default_engine(None)
     assert default_engine() is not custom
+
+
+# ------------------------------------------------- the engine's exports
+MESH_EXPORTS = {"plan_grains", "radic_det_distributed",
+                "radic_det_batched_distributed", "make_distributed_evaluator",
+                "make_batched_distributed_evaluator"}
+
+
+def test_core_exports_the_references_names():
+    """``repro_torch.core`` exports every name ``repro.core`` does (the
+    jnp helpers under their torch names), but the mesh entries, which
+    wait for the mesh module."""
+    import repro.core as ref_core
+    import repro_torch.core as core
+    want = {n.replace("_jnp", "_torch") for n in ref_core.__all__}
+    assert want - MESH_EXPORTS == set(core.__all__)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 8])
+def test_evaluator_backends_agree(cap):
+    """The bound-shape evaluators agree across backends and with the
+    reference's, and each is radic_det_batched bit for bit."""
+    from repro.core import make_batched_evaluator as ref_evaluator
+    from repro_torch.core import make_batched_evaluator
+    m, n = 3, 8
+    As = np.random.default_rng(cap).normal(size=(cap, m, n)).astype(
+        np.float32)
+    T = torch.from_numpy(As)
+    ev_t = make_batched_evaluator(m, n, chunk=64, backend="torch",
+                                  device=CPU)
+    ev_c = make_batched_evaluator(m, n, device=CPU)
+    got_t, got_c = ev_t(T), ev_c(T)
+    np.testing.assert_allclose(got_c.numpy(), got_t.numpy(), rtol=1e-3,
+                               atol=1e-4)
+    np.testing.assert_allclose(
+        got_c.numpy(), np.asarray(ref_evaluator(m, n, chunk=64)(
+            jnp.asarray(As))), rtol=1e-3, atol=1e-4)
+    assert torch.equal(got_c, radic_det_batched(T, device=CPU))
+    assert torch.equal(got_t, radic_det_batched(T, chunk=64,
+                                                backend="torch", device=CPU))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_plan_grad_aot_bit_identical_to_traced(backend):
+    """The capacity-pinned plan's ``grad`` and autograd through
+    ``radic_det_batched`` run the same backward, to the bit, with
+    nonuniform cotangents; a ct = 0 slot is exact zeros; both are held
+    to the reference's AOT plan."""
+    from repro.core import aot_compile_batched as ref_aot
+    from repro_torch.core import aot_compile_batched
+    m, n, cap = 3, 7, 4
+    plan = aot_compile_batched(m, n, cap, chunk=64, backend=backend,
+                               device=CPU)
+    As = np.random.default_rng(6).normal(size=(cap, m, n)).astype(
+        np.float32)
+    cts = np.array([1.0, -2.0, 0.5, 0.0], np.float32)
+    T = torch.from_numpy(As).requires_grad_(True)
+    aot = plan.grad(T.detach(), torch.from_numpy(cts))
+    (traced,) = torch.autograd.grad(
+        radic_det_batched(T, chunk=64, backend=backend, device=CPU), T,
+        grad_outputs=torch.from_numpy(cts))
+    assert torch.equal(aot, traced)
+    assert not aot[3].any()
+    assert torch.equal(plan(T.detach()),
+                       radic_det_batched(T.detach(), chunk=64,
+                                         backend=backend, device=CPU))
+    want = np.asarray(ref_aot(m, n, cap, chunk=64).grad(
+        jnp.asarray(As), jnp.asarray(cts)))
+    np.testing.assert_allclose(aot.numpy(), want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_aot_plan_refuses_another_batch(backend):
+    """A plan pinned to (capacity, m, n) refuses another batch size with
+    TypeError, as the reference's compiled program does, and another
+    dtype (the reference refuses one that reaches it, under x64; without
+    it jnp casts float64 host data first); an m > n plan has nothing
+    compiled and takes any batch."""
+    from repro.core import aot_compile_batched as ref_aot
+    from repro_torch.core import aot_compile_batched
+    plan = aot_compile_batched(2, 5, 4, backend=backend, device=CPU)
+    ref_plan = ref_aot(2, 5, 4)
+    for shape, dtype in [((3, 2, 5), np.float32), ((4, 2, 6), np.float32),
+                         ((4, 2, 5), np.float64)]:
+        A = np.ones(shape, dtype)
+        with pytest.raises(TypeError):
+            plan(A)
+        with pytest.raises(TypeError):
+            plan.grad(A, np.ones(shape[0], dtype))
+        if dtype == np.float32:
+            with pytest.raises(TypeError):
+                ref_plan(jnp.asarray(A))
+    zeros = aot_compile_batched(4, 2, 4, backend=backend, device=CPU)
+    assert zeros(np.ones((3, 4, 2), np.float32)).shape == (3,)
+
+
+def test_exports_guard_the_rank_space_at_plan_time():
+    """Binding an evaluator already fails for C(40, 16) > 2**31 on the
+    cuda backend, as the reference's pallas one does."""
+    from repro.core import make_batched_evaluator as ref_evaluator
+    from repro_torch.core import aot_compile_batched, make_batched_evaluator
+    with pytest.raises(OverflowError):
+        ref_evaluator(16, 40, backend="pallas")
+    with pytest.raises(OverflowError):
+        make_batched_evaluator(16, 40, device=CPU)
+    with pytest.raises(OverflowError):
+        aot_compile_batched(16, 40, 4, device=CPU)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_degenerate_batched_evaluator_is_zeros_on_device(backend):
+    from repro_torch.core import make_batched_evaluator
+    ev = make_batched_evaluator(4, 2, backend=backend, device=CPU)
+    out = ev(np.random.default_rng(0).normal(size=(3, 4, 2)).astype(
+        np.float32))
+    assert isinstance(out, torch.Tensor) and out.device.type == "cpu"
+    assert out.shape == (3,) and not out.any()

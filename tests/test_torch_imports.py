@@ -47,6 +47,7 @@ def test_port_runs_with_jax_unimportable():
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.launch.det_serve, repro_torch.runtime\n"
         "import repro_torch.launch.det_front, repro_torch.launch.autoscale\n"
+        "import repro_torch.checkpoint\n"
         "from repro_torch.core import radic_det_batched, radic_det_oracle\n"
         "As = np.random.default_rng(0).normal(size=(3, 3, 7))"
         ".astype(np.float32)\n"

@@ -5,8 +5,9 @@ substrings (``repro/launch/``, ``repro/runtime/``) that do not match
 ``repro_torch/...``, so their ``applies()`` would skip every port file.
 These tests build each file's ``FileContext`` themselves and run the two
 passes' ``run()`` directly on every module of ``src/repro_torch/launch``
-and ``src/repro_torch/runtime``, honouring the files' own suppression
-comments as the lint runner does.
+and ``src/repro_torch/runtime``, and ``lock-discipline`` on the plan
+store and the engine, honouring the files' own suppression comments as
+the lint runner does.
 """
 
 import ast
@@ -25,13 +26,15 @@ PORT = REPO / "src" / "repro_torch"
 FILES = sorted((PORT / "launch").glob("*.py")) + \
     sorted((PORT / "runtime").glob("*.py"))
 PASSES = (LockDisciplinePass(), WireSafetyPass())
+LOCKED = [PORT / "checkpoint" / "plan_store.py", PORT / "core" / "engine.py"]
 
 
-def _findings(path: pathlib.Path, source: str | None = None) -> list:
+def _findings(path: pathlib.Path, source: str | None = None,
+              passes=PASSES) -> list:
     source = path.read_text() if source is None else source
     norm = str(path).replace("\\", "/")
     ctx = FileContext(norm, source, ast.parse(source, filename=norm))
-    return [f for p in PASSES for f in p.run(ctx)
+    return [f for p in passes for f in p.run(ctx)
             if not ctx.suppressions.is_suppressed(f.pass_id, f.line)]
 
 
@@ -39,6 +42,15 @@ def _findings(path: pathlib.Path, source: str | None = None) -> list:
                          ids=[str(p.relative_to(REPO)) for p in FILES])
 def test_port_serving_tier_has_no_concurrency_findings(path):
     found = _findings(path)
+    assert not found, "\n".join(f.render() for f in found)
+
+
+@pytest.mark.parametrize("path", LOCKED,
+                         ids=[str(p.relative_to(REPO)) for p in LOCKED])
+def test_plan_store_and_engine_keep_lock_discipline(path):
+    """The plan store's write queue and the engine's cache and store
+    counters are shared between threads: every touch under its lock."""
+    found = _findings(path, passes=(LockDisciplinePass(),))
     assert not found, "\n".join(f.render() for f in found)
 
 
@@ -56,11 +68,15 @@ def test_port_declares_the_reference_registries():
                         out[node.name] = reg
         return out
 
-    port = registries(PORT / "launch") | registries(PORT / "runtime")
+    dirs = ("launch", "runtime", "checkpoint", "core")
     ref = REPO / "src" / "repro"
-    want = registries(ref / "launch") | registries(ref / "runtime")
+    port, want = {}, {}
+    for d in dirs:
+        port |= registries(PORT / d)
+        want |= registries(ref / d)
     for name in ("DetFront", "DetQueue", "SocketLink", "ShmRing",
-                 "ShmRingReader", "Autoscaler", "Watchdog"):
+                 "ShmRingReader", "Autoscaler", "Watchdog", "PlanStore",
+                 "DetEngine"):
         assert port[name] == want[name], name
 
 
@@ -90,3 +106,18 @@ def test_passes_catch_a_fault_in_the_port(pass_id, old, new):
         assert old in source
         source = source.replace(old, new)
     assert any(f.pass_id == pass_id for f in _findings(path, source))
+
+
+@pytest.mark.parametrize("path,old", [
+    (LOCKED[0], "        with self._cv:\n            return {\"entries\""),
+    (LOCKED[1], "            with self._lock:\n"
+                "                if built is not None:\n"),
+], ids=["plan_store", "engine"])
+def test_lock_discipline_catches_a_fault_in_the_store_and_engine(path, old):
+    """A guarded counter read or written outside its lock is found."""
+    source = path.read_text()
+    assert old in source
+    bad = source.replace(old, old.replace("with self._cv:", "if True:")
+                         .replace("with self._lock:", "if True:"))
+    assert any(f.pass_id == "lock-discipline"
+               for f in _findings(path, bad, (LockDisciplinePass(),)))

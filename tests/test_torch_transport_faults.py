@@ -2,8 +2,8 @@
 (``repro_torch.launch.transport``), on the CPU (``device="cpu"``).
 Added here: frames are byte-identical between the reference and the
 port and decode across the two, and a spawn or hello that carries a
-warm-start ``prefill`` raises ``NotImplementedError`` (the plan store is
-not ported).
+warm-start ``prefill`` warms the worker's queue from the plan store
+before the worker answers anything.
 
 The reference's battery:
 
@@ -671,50 +671,117 @@ def test_hello_config_crosses_to_the_reference():
     assert back.device == "cuda"  # the port's default: the card
 
 
-# -------------------------------------------------- prefill is refused
-def _cfg():
+# ----------------------------------------- prefill warms before ready
+def _cfg(persist_dir=None):
     return T.WorkerConfig(chunk=CHUNK, backend="cuda", dtype="float32",
                           policy=PINNED, max_pending=None, plan_cache=8,
                           linger_s=0.0, stage_depth=None, pipeline_depth=2,
-                          pin_workers=False, device=DEV)
+                          pin_workers=False, device=DEV,
+                          persist_dir=persist_dir)
 
 
-def test_spawned_worker_refuses_prefill():
-    """A worker spawned with a warm-start prefill raises
-    ``NotImplementedError`` naming the plan store's module (no silent
-    skip): called in-process it raises, spawned its process dies."""
-    with pytest.raises(NotImplementedError, match="module 7"):
-        T._local_worker_main(0, _cfg(), None, None, prefill=[(2, 5, 8)])
-    tr = T.LocalTransport(1)
-    link = tr._spawn(0, _cfg(), prefill=[(2, 5, 8)])
+def _populated_store(tmp_path) -> tuple[str, tuple]:
+    """A plan store holding the (2, 5) family, and that family's prefill
+    entry as the front ships it."""
+    store = str(tmp_path / "plans")
+    with DetQueue(chunk=CHUNK, policy=PINNED, device=DEV,
+                  persist_dir=store) as q:
+        q.serve([np.ones((2, 5), np.float32)], timeout=120)
+    return store, route_key((2, 5), PINNED, np.float32)[:3]
+
+
+def _warm(pc: dict) -> bool:
+    """One family planned, and from the store."""
+    return pc["size"] == 1 and pc["misses"] == 1 and pc["store_hits"] == 1
+
+
+def test_spawned_worker_prefills_before_ready(tmp_path, monkeypatch):
+    """A worker spawned with a warm-start prefill plans those families,
+    store first, before it reads its first request: its first stats
+    reply already holds the plan as a store hit.  In process, then as a
+    spawned process."""
+    import queue
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "_store_dir", _build._store_dir)
+    store, entry = _populated_store(tmp_path)
+
+    class Conn:
+        def __init__(self):
+            self.sent = []
+
+        def send(self, msg):
+            self.sent.append(msg)
+
+        def close(self):
+            pass
+
+    req_q, conn = queue.Queue(), Conn()
+    for msg in [("stats", 1), ("stop",)]:
+        req_q.put(msg)
+    T._local_worker_main(0, _cfg(store), req_q, conn, prefill=[entry])
+    assert [m[0] for m in conn.sent] == ["stats", "bye"]
+    assert _warm(conn.sent[0][2]["plan_cache"])
+
+    link = T.LocalTransport(1)._spawn(0, _cfg(store), prefill=[entry])
     try:
-        link.process.join(timeout=120)
-        assert not link.process.is_alive()
-        assert link.process.exitcode != 0
+        link.send(("stats", 2))
+        deadline = time.monotonic() + 120
+        got = []
+        while not any(m[0] == "stats" for m in got):
+            assert time.monotonic() < deadline, got
+            msgs, dead = link.pump()
+            got += msgs
+            assert not dead or msgs, "the spawned worker died"
+            time.sleep(0.05)
+        stats = [m for m in got if m[0] == "stats"][0]
+        assert stats[3] == 2 and _warm(stats[2]["plan_cache"])
+        link.send(("stop",))
+        link.join(timeout=60)
+        assert link.process.exitcode == 0
     finally:
         link.kill()
         link.join(timeout=10)
         link.close()
 
 
-def test_hello_with_prefill_is_refused():
-    """A hello that ships a prefill list makes the daemon's session
-    raise ``NotImplementedError`` before it builds a queue or answers
-    ready."""
+def test_hello_with_prefill_warms_the_daemons_queue(tmp_path, monkeypatch):
+    """A hello that ships a prefill list makes the daemon plan those
+    families (store first) before it answers ready: the first stats
+    reply after the ready holds them as store hits."""
     import socket
+    import threading
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "_store_dir", _build._store_dir)
+    store, entry = _populated_store(tmp_path)
     with socket.create_server(("127.0.0.1", 0)) as srv:
         front = socket.create_connection(srv.getsockname(), timeout=10)
         worker, _ = srv.accept()
+    session = threading.Thread(
+        target=T._serve_front_session,
+        args=(worker, ("loopback", 0), lambda *a, **k: None), daemon=True)
     try:
-        wire = _cfg().to_wire()
-        wire["prefill"] = [(2, 5, 8)]
+        wire = _cfg(store).to_wire()
+        wire["prefill"] = [entry]
         front.sendall(T.encode_frame(("hello", 0, wire)))
-        with pytest.raises(NotImplementedError, match="module 7"):
-            T._serve_front_session(worker, ("loopback", 0),
-                                   lambda *a, **k: None)
-        front.settimeout(1.0)
-        with pytest.raises(socket.timeout):
-            front.recv(1)  # no ready was sent
+        session.start()
+        decoder = T.FrameDecoder()
+
+        def frame(kind):
+            while True:
+                msg = T._read_frame(front, decoder, timeout=60,
+                                    skip_hb=True)
+                assert msg is not None, f"no {kind} frame"
+                if msg[0] == kind:
+                    return msg
+
+        assert frame("ready") == ("ready", 0)
+        front.sendall(T.encode_frame(("stats", 5)))
+        stats = frame("stats")
+        assert stats[3] == 5 and _warm(stats[2]["plan_cache"])
+        front.sendall(T.encode_frame(("stop",)))
+        frame("bye")
+        session.join(timeout=60)
+        assert not session.is_alive()
     finally:
         front.close()
         worker.close()

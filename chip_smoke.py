@@ -63,8 +63,10 @@ per source, all at once) and runs these phases, each printing its lines:
    (3, 20, 26) and K6 at (65536, m, m), m = 32, 17 and 24; K6 above
    m = 32 at (16384, 33, 33) and (4096, 64, 64) in float32 (the warp
    kernel at two rows a lane) and at (256, 250, 250) in float64 (the
-   block kernel on a global copy).
-   It runs last, after 10 and 11, so that every kernel it times has
+   block kernel on a global copy); and one shard of phase 14's grid: K2
+   at an eighth of (10, 34)'s ranks, K1 and K3 at (32, 8, 31) over a
+   quarter of its ranks.
+   It runs last, after 10 to 14, so that every kernel it times has
    passed its checks;
 10. the wide path (m >= 17): the warp kernels of K1, K2 and K4 against
    float64 plain at (3, 17, 20), (2, 20, 22), (3, 24, 26), (1, 33, 33),
@@ -117,7 +119,30 @@ per source, all at once) and runs these phases, each printing its lines:
    (64, 8, 20) and (16, 20, 24), value and gradient bit for bit
    ``radic_det_batched``'s with one K1 and one K3 launch each, a batch of
    another size refused; a checkpoint of card tensors (float32, float64,
-   int32, bfloat16) restored on the card and on the CPU bit for bit.
+   int32, bfloat16) restored on the card and on the CPU bit for bit;
+14. the mesh (``repro_torch.core.distributed``) on a (2, 4) ``("data",
+   "model")`` grid over ``cuda:0`` repeated (``build_mesh``), and on (1,)
+   and (2,) ``("data",)`` grids, each entry driven with the launch counts
+   set to 0 just before it and read just after: the scalar ``flat`` mode
+   on (10, 34) f32 (eight K2 launches, within ``TOL`` of the single-device
+   plan and of float64 plain; the (1,) grid bit for bit the single-device
+   plan; repeats bit for bit), a rank space smaller than the grid (launches
+   over empty ranges); batched values at (64, 8, 31) and (4, 20, 26) with
+   the batch over ``data`` and with the ranks over the whole grid (eight
+   K1 launches, within ``TOL`` of the single-device plan and of float64
+   plain; the (2,) grid bit for bit slot by slot); their gradients through
+   ``torch.autograd.grad`` with zero and negative cotangents (eight K3
+   launches within ``grad_rel_err`` ``TOL`` of the single-device gradient,
+   the (2,) grid bit for bit); the scalar mesh plan's gradient at (6, 20)
+   (one K3 launch at B = 1, bit for bit the single-device ``plan.grad``);
+   ``grains`` on (5, 24) f64 with 64 grains a slot (512 grains, 84
+   lock-step steps) against the oracle, 5 grains of (5, 8) on the default
+   mesh, and the bigint grain starts of C(70, 30) (planned, not walked);
+   ``drain_queue`` and a ``DetQueue`` (batch over ``data``, pinned
+   capacity) on the grid serving phase 4's 512 requests, K1 launches eight
+   a dispatch, every answer within ``TOL`` of float64 plain, and both
+   again on one device; each leg's wall beside the single-device wall of
+   the same shape and phase 4's.
 
 Every check holds ``|got - want| <= 2e-3 * max(1, |want|)`` (the
 reference's tolerance against its oracles), ``want`` from the plain
@@ -302,7 +327,8 @@ class Errors:
     def __init__(self):
         self.abs = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6",
                                      "K1 wide", "K2 wide", "K3 wide",
-                                     "K4 wide", "K6 wide", "K6 above 32")}
+                                     "K4 wide", "K6 wide", "K6 above 32",
+                                     "K1 mesh", "K2 mesh", "K3 mesh")}
 
     def hold(self, kernel: str, label: str, got, want,
              tol: float = TOL, track: bool = True) -> None:
@@ -627,24 +653,37 @@ def phase_serve(errs: Errors) -> dict:
     by_shape: dict[tuple[int, int], list[int]] = {}
     for i, A in enumerate(mats):
         by_shape.setdefault(A.shape, []).append(i)
-    worst, minors = 0.0, 0
+    want = np.zeros(len(mats))
+    minors = 0
     for (m, n), idxs in sorted(by_shape.items()):
         As = torch.from_numpy(np.stack([mats[i] for i in idxs])).cuda()
         table = rank_table(n, m, backend="cuda", device="cuda")
         chunk = max(1, (1 << 27) // (len(idxs) * m * m))
-        want = radic_batched_partial_plain(
-            As, table, 0, comb(n, m), dtype=torch.float64, chunk=chunk)
-        got = torch.tensor([dets[i] for i in idxs], dtype=torch.float64)
-        errs.abs["K1"] = max(errs.abs["K1"], abs_err(got, want.cpu()))
-        worst = max(worst, rel_err(got, want.cpu()))
+        want[idxs] = radic_batched_partial_plain(
+            As, table, 0, comb(n, m), dtype=torch.float64,
+            chunk=chunk).cpu().numpy()
         minors += comb(n, m) * len(idxs)
-    print(f"K1 serving: all 512 results vs plain float64: "
-          f"rel_err={worst:.3e} (tol {TOL:g}), {minors} minors")
-    check(worst <= TOL, f"serving rel_err {worst:.3e} > {TOL:g}")
+    worst = hold_served(errs, "K1", "K1 serving", dets, want)
+    print(f"K1 serving: {minors} minors")
     print(f"serve: {512 / wall:.1f} mats/s, {stats['ranks'] / wall:.4e} "
           f"ranks/s (queue ranks {stats['ranks']}, exact-shape minors "
           f"{minors})")
-    return {"launches": launches, "stats": stats}
+    return {"launches": launches, "stats": stats, "wall": wall,
+            "mats": mats, "want": want, "worst": worst}
+
+
+def hold_served(errs: Errors, kernel: str, label: str, dets,
+                want: np.ndarray) -> float:
+    """Every served value against its float64 plain answer: the worst
+    relative error, checked against ``TOL``."""
+    got = torch.tensor(dets, dtype=torch.float64)
+    ref = torch.from_numpy(want)
+    worst = rel_err(got, ref)
+    errs.abs[kernel] = max(errs.abs[kernel], abs_err(got, ref))
+    print(f"{label}: all {len(dets)} results vs plain float64: "
+          f"rel_err={worst:.3e} (tol {TOL:g})", flush=True)
+    check(worst <= TOL, f"{label} rel_err {worst:.3e} > {TOL:g}")
+    return worst
 
 
 def traced(fn) -> tuple[float, list]:
@@ -1860,9 +1899,264 @@ def phase_warm_start(gen: torch.Generator) -> None:
               "bit", flush=True)
 
 
+def phase_mesh(errs: Errors, gen: torch.Generator, serve: dict) -> dict:
+    """The mesh (``repro_torch.core.distributed``) on a (2, 4)
+    ``("data", "model")`` grid over ``cuda:0`` repeated, and on (1,) and
+    (2,) ``("data",)`` grids: each entry driven with the launch counts set
+    to 0 just before it and read just after, after one uncounted call that
+    plans it; walls are medians of three warm calls, host clock."""
+    from repro_torch.core import (Mesh, default_engine,
+                                  make_distributed_evaluator, plan_grains,
+                                  radic_det, radic_det_batched,
+                                  radic_det_distributed, radic_det_oracle,
+                                  unrank_py)
+    from repro_torch.core.engine import rank_table
+    from repro_torch.core.pascal import comb
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.radic_fused import (
+        radic_batched_grad_partial_cuda as k3,
+        radic_batched_partial_cuda as k1, radic_batched_partial_plain,
+        radic_grad_partial_cuda as k3b1, radic_partial_cuda as k2,
+        radic_partial_plain)
+    from repro_torch.launch import det_serve
+    from repro_torch.launch.det_queue import BucketPolicy, DetQueue
+    from repro_torch.runtime import build_mesh, choose_mesh
+
+    print(card_line())
+    grid = build_mesh(choose_mesh(8, max_model=4), ["cuda:0"] * 8)
+    one = Mesh(["cuda:0"], ("data",))
+    pair = Mesh(["cuda:0"] * 2, ("data",))
+    check(dict(grid.shape) == {"data": 2, "model": 4},
+          f"build_mesh gave {dict(grid.shape)}")
+
+    def launches() -> dict:
+        return {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches,
+                "K3 B=1": k3b1.launches}
+
+    def leg(label: str, fn, reps: int = 3):
+        """``fn``'s result, its launches (the first counted call) and its
+        median wall, ms."""
+        fn()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        walls, counts = [], None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            counts = counts or launches()
+        wall = sorted(walls)[len(walls) // 2]
+        print(f"mesh {label}: wall {wall:.3f} ms, launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        return out, counts, wall
+
+    def expect(counts: dict, label: str, want: dict) -> None:
+        got = {k: counts[k] for k in want}
+        check(got == want, f"{label}: launches {counts}, want {want}")
+
+    # 1. scalar flat on the paper's (10, 34): one K2 launch a shard
+    m, n = 10, 34
+    total = comb(n, m)
+    big = torch.randn(m, n, device="cuda", generator=gen)
+    table = rank_table(n, m, backend="cuda", device="cuda")
+    single, c, w_single = leg("(10,34) single-device plan",
+                              lambda: radic_det(big, backend="cuda"))
+    expect(c, "single", {"K2": 1})
+    got, c, w_flat = leg("(10,34) flat on (2,4)",
+                         lambda: radic_det_distributed(
+                             big, mesh=grid, mode="flat", backend="cuda"))
+    expect(c, "flat (2,4)", {"K1": 0, "K2": 8})
+    k2_launches = c["K2"]
+    errs.hold("K2 mesh", "(10,34) flat (2,4) vs the single-device plan",
+              got, single)
+    errs.hold("K2 mesh", "(10,34) flat (2,4) vs float64 plain", got,
+              radic_partial_plain(big, table, 0, total,
+                                  dtype=torch.float64, chunk=1 << 19))
+    check(torch.equal(got, radic_det_distributed(
+        big, mesh=grid, mode="flat", backend="cuda")),
+        "(10,34) flat (2,4): a second call moved a bit")
+    got, c, _ = leg("(10,34) flat on (1,)", lambda: radic_det_distributed(
+        big, mesh=one, mode="flat", backend="cuda"))
+    expect(c, "flat (1,)", {"K2": 1})
+    check(torch.equal(got, single),
+          "(10,34) flat (1,) is not the single-device plan bit for bit")
+    # fewer ranks than shards: five of eight launches walk no rank
+    A23 = torch.randn(2, 3, device="cuda", generator=gen)
+    S23 = torch.randn(4, 2, 3, device="cuda", generator=gen)
+    got, c, _ = leg("(2,3) flat on (2,4), 3 ranks", lambda:
+                    radic_det_distributed(A23, mesh=grid, mode="flat",
+                                          backend="cuda"), reps=1)
+    expect(c, "(2,3) flat", {"K2": 8})
+    errs.hold("K2 mesh", "(2,3) flat (2,4) vs the oracle", got.cpu(),
+              torch.tensor(radic_det_oracle(A23.cpu().numpy())))
+    got, c, _ = leg("(4,2,3) on (2,4), 3 ranks", lambda: radic_det_batched(
+        S23, mesh=grid, batch_axis="data", backend="cuda"), reps=1)
+    expect(c, "(4,2,3)", {"K1": 8})
+    errs.hold("K1 mesh", "(4,2,3) on (2,4) vs the oracle", got.cpu(),
+              torch.tensor([radic_det_oracle(a) for a in S23.cpu().numpy()]))
+
+    # 2. batched values: batch over "data", ranks over "model"
+    walls = {"(10,34) single-device": w_single, "(10,34) flat (2,4)": w_flat}
+    k1_shapes = {}
+    for B, m, n in ((64, 8, 31), (4, 20, 26)):
+        total = comb(n, m)
+        table = rank_table(n, m, backend="cuda", device="cuda")
+        As = torch.randn(B, m, n, device="cuda", generator=gen)
+        if m > 16:
+            As /= m ** 0.5
+        tag = f"({B},{m},{n})"
+        single, c, w_single = leg(f"{tag} single-device plan",
+                                  lambda: radic_det_batched(As,
+                                                            backend="cuda"))
+        got, c, w_mesh = leg(f"{tag} batch over data on (2,4)",
+                             lambda: radic_det_batched(
+                                 As, mesh=grid, batch_axis="data",
+                                 backend="cuda"))
+        expect(c, tag, {"K1": 8})
+        errs.hold("K1 mesh", f"{tag} (2,4) vs the single-device plan", got,
+                  single)
+        errs.hold("K1 mesh", f"{tag} (2,4) vs float64 plain", got,
+                  radic_batched_partial_plain(
+                      As, table, 0, total, dtype=torch.float64,
+                      chunk=max(1, (1 << 27) // (B * m * m))))
+        got, c, w_all = leg(f"{tag} ranks over all of (2,4)",
+                            lambda: radic_det_batched(As, mesh=grid,
+                                                      backend="cuda"))
+        expect(c, f"{tag} ranks over all", {"K1": 8})
+        errs.hold("K1 mesh", f"{tag} ranks over (2,4) vs single", got,
+                  single)
+        got, c, _ = leg(f"{tag} on (2,) data", lambda: radic_det_batched(
+            As, mesh=pair, batch_axis="data", backend="cuda"))
+        expect(c, f"{tag} (2,)", {"K1": 2})
+        check(torch.equal(got, single),
+              f"{tag} on (2,) is not the single-device plan slot by slot")
+        walls[f"{tag} single-device"] = w_single
+        walls[f"{tag} batch over data (2,4)"] = w_mesh
+        walls[f"{tag} ranks over all of (2,4)"] = w_all
+        k1_shapes[tag] = (As, table, total)
+
+        # 3. the batched gradient, cotangents with zeros and negatives
+        cts = torch.randn(B, device="cuda", generator=gen)
+        cts[::3] = 0.0
+
+        def grad(mesh=None, **kw):
+            T = As.detach().clone().requires_grad_(True)
+            return torch.autograd.grad(
+                radic_det_batched(T, mesh=mesh, backend="cuda", **kw), T,
+                cts)[0]
+
+        want, c, w_single = leg(f"{tag} gradient, single-device", grad)
+        got, c, w_mesh = leg(f"{tag} gradient, batch over data on (2,4)",
+                             lambda: grad(grid, batch_axis="data"))
+        expect(c, f"{tag} gradient", {"K1": 8, "K3": 8})
+        if m <= 16:   # the shape the kernels line times
+            k1_shapes["cts"], k3_launches = cts, c["K3"]
+        errs.hold("K3 mesh", f"{tag} gradient (2,4) vs single", got, want)
+        got, c, _ = leg(f"{tag} gradient on (2,)",
+                        lambda: grad(pair, batch_axis="data"))
+        expect(c, f"{tag} gradient (2,)", {"K3": 2})
+        check(torch.equal(got, want),
+              f"{tag} gradient on (2,) is not the single-device one")
+        walls[f"{tag} gradient single-device"] = w_single
+        walls[f"{tag} gradient batch over data (2,4)"] = w_mesh
+
+    # the scalar mesh plan's gradient: one K3 launch at B = 1
+    A6 = torch.randn(6, 20, device="cuda", generator=gen)
+    plan_m = default_engine().plan(6, 20, batched=False, backend="cuda",
+                                   mesh=grid)
+    plan_s = default_engine().plan(6, 20, batched=False, backend="cuda")
+    got, c, _ = leg("(6,20) scalar mesh plan's gradient",
+                    lambda: plan_m.grad(A6, 1.0))
+    expect(c, "(6,20) plan.grad", {"K3 B=1": 1, "K2": 0})
+    check(torch.equal(got, plan_s.grad(A6, 1.0)),
+          "(6,20): the mesh plan's gradient is not the single-device one")
+    T = A6.clone().requires_grad_(True)
+    reset_launch_counts()
+    (g,) = torch.autograd.grad(radic_det(T, mesh=grid, mode="flat",
+                                         backend="cuda"), T)
+    torch.cuda.synchronize()
+    expect(launches(), "(6,20) autograd", {"K2": 8, "K3 B=1": 1})
+    check(torch.equal(g, plan_s.grad(A6, 1.0)),
+          "(6,20) autograd through the mesh is not plan.grad")
+
+    # 4. grains: 512 grains of the paper's (5, 24) in float64
+    A5 = torch.randn(5, 24, dtype=torch.float64, device="cuda",
+                     generator=gen)
+    ev = make_distributed_evaluator(5, 24, mesh=grid, grains_per_device=64)
+    check(len(ev.grain_lengths) == 512 and max(ev.grain_lengths) == 84,
+          f"(5,24): {len(ev.grain_lengths)} grains, "
+          f"{max(ev.grain_lengths)} steps")
+    got, c, w_grains = leg("(5,24) f64 grains 64 a slot on (2,4)", lambda:
+                           radic_det_distributed(A5, mesh=grid,
+                                                 grains_per_device=64))
+    check(not any(c.values()), f"grains launched kernels: {c}")
+    want = radic_det_oracle(A5.cpu().numpy())
+    r = abs(float(got) - want) / max(1.0, abs(want))
+    print(f"mesh grains (5,24) vs oracle: {float(got)!r} {want!r} "
+          f"rel_err={r:.3e}")
+    check(r <= TOL, f"grains (5,24) rel_err {r:.3e} > {TOL:g}")
+    walls["(5,24) f64 grains 512 on (2,4)"] = w_grains
+    A58 = torch.randn(5, 8, device="cuda", generator=gen)
+    got = radic_det_distributed(A58, grains_per_device=5)   # every card
+    want = radic_det_oracle(A58.cpu().numpy())
+    r = abs(float(got) - want) / max(1.0, abs(want))
+    print(f"mesh grains (5,8) over 5 grains: rel_err={r:.3e}")
+    check(r <= TOL, f"grains (5,8) rel_err {r:.3e} > {TOL:g}")
+    t0 = time.perf_counter()
+    ev = make_distributed_evaluator(30, 70, mesh=grid, grains_per_device=2)
+    starts, lengths = plan_grains(comb(70, 30), 16)
+    check(ev.grain_starts == starts and ev.grain_lengths == lengths
+          and ev.start_combos == [unrank_py(q, 70, 30) for q in starts],
+          "C(70,30): the grain starts are not the bigint unranking")
+    print(f"mesh grains C(70,30) = {comb(70, 30)} (past int64): 16 grain "
+          f"starts planned in {(time.perf_counter() - t0) * 1e3:.3f} ms")
+
+    # 5. serving over the mesh: phase 4's 512 requests, each leg beside
+    # the same leg on one device (its plans warm from phase 4)
+    mats, want = serve["mats"], serve["want"]
+    for mesh, shards in ((None, 1), (grid, 8)):
+        where = "(2,4)" if mesh is not None else "one device"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        dets, stats = det_serve.drain_queue(mats, max_batch=64, mesh=mesh)
+        w_drain = (time.perf_counter() - t0) * 1e3
+        dispatches = sum(s["dispatches"] for s in stats.values())
+        expect(launches(), f"drain_queue on {where}",
+               {"K1": shards * dispatches})
+        hold_served(errs, "K1 mesh", f"drain_queue on {where}", dets, want)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        batch_axis = None if mesh is None else "data"
+        with DetQueue(mesh=mesh, batch_axis=batch_axis,
+                      policy=BucketPolicy(max_batch=64,
+                                          pin_capacity=True)) as q:
+            dets, q_stats = q.serve(mats, timeout=600)
+        w_queue = (time.perf_counter() - t0) * 1e3
+        if mesh is not None:   # the mesh path's serving launches
+            k1_serving = k1.launches
+        expect(launches(), f"DetQueue on {where}",
+               {"K1": shards * q_stats["dispatches"]})
+        hold_served(errs, "K1 mesh", f"DetQueue on {where}, pinned "
+                    "capacity", dets, want)
+        print(f"mesh serving, 512 requests on {where}: drain_queue "
+              f"{w_drain:.3f} ms in {dispatches} dispatches; DetQueue "
+              f"(batch over data on the grid), pinned capacity "
+              f"{w_queue:.3f} ms in {q_stats['dispatches']} dispatches",
+              flush=True)
+        walls[f"serving drain_queue {where}"] = w_drain
+        walls[f"serving DetQueue pinned {where}"] = w_queue
+    walls["serving one queue (phase 4)"] = serve["wall"] * 1e3
+    print("mesh walls, ms: " + json.dumps(walls))
+    As, table, total = k1_shapes["(64,8,31)"]
+    return {"K1": k1_serving, "K2": k2_launches, "K3": k3_launches,
+            "As": As, "cts": k1_shapes["cts"], "table": table,
+            "total": total}
+
+
 def phase_times(gen: torch.Generator, serve: dict, k2_big,
-                grad_A: torch.Tensor) -> dict:
-    from repro_torch.core import radic_det
+                grad_A: torch.Tensor, mesh: dict) -> dict:
+    from repro_torch.core import plan_grains, radic_det
     from repro_torch.core.engine import rank_table
     from repro_torch.core.pascal import comb
     from repro_torch.kernels import ops
@@ -1923,6 +2217,32 @@ def phase_times(gen: torch.Generator, serve: dict, k2_big,
            cuda_ms(lambda: radic_partial_plain(
                k2_big, table, 0, total, chunk=1 << 20), min_reps=1, min_s=0),
            bound_ms(1, m, n, total))
+
+    # one shard of phase 14's (2, 4) grid: K2 at the first eighth of
+    # (10, 34)'s ranks, K1 and K3 at a batch piece of (64, 8, 31) over the
+    # first quarter of its ranks
+    cnt = plan_grains(total, 8)[1][0]
+    record("K2 mesh", f"({m},{n}) ranks [0,{cnt}), one of 8 shards",
+           (1, m, n), lambda: ops.radic_det_cuda(k2_big, 0, cnt, table=table),
+           cuda_ms(lambda: radic_partial_plain(
+               k2_big, table, 0, cnt, chunk=1 << 20), min_reps=1, min_s=0),
+           bound_ms(1, m, n, cnt))
+    As, cts, table = mesh["As"][:32], mesh["cts"][:32], mesh["table"]
+    B, m, n = As.shape
+    cnt = plan_grains(mesh["total"], 4)[1][0]
+    label = f"({B},{m},{n}) ranks [0,{cnt}), one of 8 shards"
+    record("K1 mesh", label, (B, m, n),
+           lambda: ops.radic_det_batched_cuda(As, 0, cnt, table=table),
+           cuda_ms(lambda: radic_batched_partial_plain(
+               As, table, 0, cnt, chunk=1 << 16), min_reps=1, min_s=0),
+           bound_ms(B, m, n, cnt))
+    record("K3 mesh", label, (B, m, n),
+           lambda: ops.radic_det_batched_grad_cuda(As, cts, 0, cnt,
+                                                   table=table),
+           cuda_ms(lambda: radic_batched_grad_partial_plain(
+               As, cts, table, 0, cnt, chunk=1 << 13), min_reps=1, min_s=0),
+           roofline(cnt * B * grad_flops(m),
+                    4 * (2 * B * m * n + B + (n + 1) * (m + 1))))
 
     # K3's B = 1 entry at the autograd phase's matrix
     m, n = grad_A.shape
@@ -2088,7 +2408,9 @@ def main() -> int:
     done("12 the front")
     phase_warm_start(gen)
     done("13 warm start")
-    times = phase_times(gen, serve, k2["big"], autograd["A"])
+    mesh = phase_mesh(errs, gen, serve)
+    done("14 the mesh")
+    times = phase_times(gen, serve, k2["big"], autograd["A"], mesh)
     done("9 times")
     csrc = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
@@ -2129,7 +2451,13 @@ def main() -> int:
                                (24, "K6 wide m=24"))),
             *(("minor_det_cuda", "K6 above 32", source, "minor_det.py:23",
                wide[f"K6 m={m}"], f"K6 m={m}")
-              for m, source in K6_ABOVE_32_SOURCES)]:
+              for m, source in K6_ABOVE_32_SOURCES),
+            ("radic_partial_cuda", "K2 mesh", "radic_fused.cu",
+             "radic_fused.py:39", mesh["K2"], "K2 mesh"),
+            ("radic_batched_partial_cuda", "K1 mesh", "radic_fused.cu",
+             "radic_fused.py:156", mesh["K1"], "K1 mesh"),
+            ("radic_batched_grad_partial_cuda", "K3 mesh", "radic_grad.cu",
+             "radic_fused.py:201", mesh["K3"], "K3 mesh")]:
         t = times[timed]
         check(launches > 0, f"{name} was not launched on its path")
         rows.append({"name": name, "route": "cuda", "source": csrc + source,

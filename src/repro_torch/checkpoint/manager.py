@@ -11,8 +11,9 @@ so each restores what the other wrote, bit for bit:
 * **atomic**: written to ``.tmp-`` then ``os.replace``d, so a crash mid-save
   never corrupts the latest checkpoint;
 * **elastic**: the manifest stores only the *logical* tree; ``restore``
-  places it on whatever device the caller names (the reference's
-  ``shardings`` waits for the mesh module);
+  places it on whatever device the caller names (``device=`` stands where
+  the reference takes ``shardings``: the port's mesh,
+  ``repro_torch.core.distributed.Mesh``, has no sharded tensor type);
 * **async**: ``save_async`` copies every leaf to host memory synchronously
   (a CPU tensor is cloned, so a later in-place update cannot leak into the
   write) and writes in a background thread.

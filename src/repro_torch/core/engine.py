@@ -7,7 +7,9 @@ artifact (:class:`DetPlan`) and one router (:class:`DetEngine`) that
 plans once and executes many.
 
 A plan is keyed by everything that selects a distinct program:
-``(m, n, batched, capacity, dtype, backend, chunk, kahan, device)``.
+``(m, n, batched, capacity, dtype, backend, chunk, kahan, device)``, and
+for a mesh plan the reference's ``(mesh, axis_names, batch_axis, mode,
+grains_per_device)`` after them.
 Planning performs *all* validation — ``m > n`` degeneracy, the
 ``C(n, m)`` integer-width guards and the Pascal table's — **before** any
 backend dispatch.  The cache is LRU-bounded (``max_plans``); an
@@ -24,6 +26,9 @@ and the cofactor-form VJP (DESIGN_GRAD.md).  Routing table:
   ``radic._radic_det_batched_grad_flat``.
 * cuda: ``kernels.ops.radic_det[_batched]_cuda``;
   ``kernels.ops.radic_det[_batched]_grad_cuda``.
+* mesh (either backend): the ``core.distributed`` makers, which run the
+  rows above over each shard's rank range; a scalar mesh plan's pullback
+  is the single-device plan's of its backend on the mesh's first device.
 
 ``DetPlan.differentiable(A)`` is the forward as a ``torch.autograd.Function``
 whose backward is the plan's ``grad_executable``; ``radic_det`` and
@@ -42,8 +47,8 @@ port has no executable to serialize, so every record is metadata only
 and a store hit re-plans from statics, as the reference does with its
 export seam off; the store also houses the kernel library
 (``kernels._build.use_store_dir``), which is what a warm start skips.
-
-Not in this module yet: mesh plans.
+Mesh plans are never stored: a mesh is live devices, with no identity
+across processes.
 """
 
 from __future__ import annotations
@@ -53,14 +58,15 @@ import hashlib
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable
 
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from .pascal import INT32_MAX, INT64_MAX, binom_table, comb
-from .radic import (_radic_det_batched_flat_impl,
+from .radic import (_as_tensor, _entry_device,
+                    _radic_det_batched_flat_impl,
                     _radic_det_batched_grad_flat, _radic_det_flat,
                     _radic_det_grad_flat, resolve_device)
 
@@ -88,7 +94,8 @@ def dtype_name(dtype) -> str:
 
 
 # --------------------------------------------------------- shared validation
-def validate_rank_space(m: int, n: int, *, backend: str = "cuda") -> int:
+def validate_rank_space(m: int, n: int, *, backend: str = "cuda",
+                        mesh_grains: bool = False) -> int:
     """Validate that C(n, m) fits the backend's rank-integer width and
     return it.  This runs at *plan* time, before any backend dispatch.
 
@@ -96,9 +103,11 @@ def validate_rank_space(m: int, n: int, *, backend: str = "cuda") -> int:
       so ``C(n, m) < 2**31`` is a hard requirement (the reference's
       ``pallas`` guard), with no bound on m, as the reference.
     * ``torch`` — int64 ranks (the reference's ``jnp`` backend under x64).
+    * ``mesh_grains`` — grain starts are unranked on the host with exact
+      bigints; no width limit at all.
     """
     total = comb(n, m)
-    if m > n:
+    if mesh_grains or m > n:
         return total
     if backend == "cuda":
         if total > INT32_MAX:
@@ -130,21 +139,61 @@ def plan_statics(m: int, n: int, chunk: int, *, backend: str = "torch",
 
 
 # ------------------------------------------------------------------ plan key
-class PlanKey(NamedTuple):
+def _field(i: int, default=None, doc: str = ""):
+    """The ``i``-th field of a :class:`PlanKey`; ``default`` past the end
+    (a mesh-free key has no mesh fields)."""
+    return property(lambda key: key[i] if i < len(key) else default,
+                    doc=doc)
+
+
+class PlanKey(tuple):
     """Everything that selects a distinct program.  A plain tuple: it
     pickles, hashes by value and round-trips through ``tuple(key)``.  The
     reference's ``x64`` field is gone (``dtype`` carries the precision)
-    and ``device`` is new (a plan binds its table on one device)."""
+    and ``device`` is new (a plan binds its table on one device).
 
-    m: int
-    n: int
-    batched: bool
-    capacity: int | None        # one batch's exact size, or None
-    dtype: str
-    backend: str
-    chunk: int                  # as requested (clamp is derived state)
-    kahan: bool
-    device: str
+    The reference's five mesh fields follow ``device`` in a mesh plan's
+    key only: a mesh-free key is the nine-field tuple it was before the
+    mesh existed, so its :func:`stable_key_hash`, which names its
+    plan-store record, did not change."""
+
+    __slots__ = ()
+    _fields = ("m", "n", "batched", "capacity", "dtype", "backend", "chunk",
+               "kahan", "device", "mesh", "axis_names", "batch_axis",
+               "mode", "grains_per_device")
+
+    def __new__(cls, m: int, n: int, batched: bool, capacity: int | None,
+                dtype: str, backend: str, chunk: int, kahan: bool,
+                device: str, mesh=None, axis_names: tuple | None = None,
+                batch_axis: str | None = None, mode: str = "grains",
+                grains_per_device: int = 1):
+        fields = (m, n, batched, capacity, dtype, backend, chunk, kahan,
+                  device)
+        if mesh is not None:
+            fields += (mesh, axis_names, batch_axis, mode, grains_per_device)
+        return super().__new__(cls, fields)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "PlanKey(" + ", ".join(
+            f"{k}={v!r}" for k, v in zip(self._fields, self)) + ")"
+
+    m = _field(0)
+    n = _field(1)
+    batched = _field(2)
+    capacity = _field(3, doc="one batch's exact size, or None")
+    dtype = _field(4)
+    backend = _field(5)
+    chunk = _field(6, doc="as requested (clamp is derived state)")
+    kahan = _field(7)
+    device = _field(8, doc="the plan's device (a mesh's first device)")
+    mesh = _field(9, doc="a core.distributed.Mesh, or None")
+    axis_names = _field(10)
+    batch_axis = _field(11)
+    mode = _field(12, "grains", doc='mesh scalar only: "grains" | "flat"')
+    grains_per_device = _field(13, 1)
 
 
 def _canonical_key_item(v):
@@ -313,22 +362,29 @@ class DetEngine:
     def plan(self, m: int, n: int, *, batched: bool = True,
              capacity: int | None = None, dtype=np.float32,
              chunk: int = 2048, backend: str = "cuda",
-             kahan: bool = False, device=None) -> DetPlan:
+             kahan: bool = False, device=None, mesh=None,
+             axis_names=None, batch_axis: str | None = None,
+             mode: str = "grains", grains_per_device: int = 1) -> DetPlan:
         """Return the cached plan for this configuration, building it if
         absent.  All validation happens here, before backend dispatch.
-        ``device`` defaults to ``"cuda"``."""
+        ``device`` defaults to ``"cuda"``; with a ``mesh``
+        (:class:`~repro_torch.core.distributed.Mesh`) the plan's device is
+        the mesh's first."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
         if kahan and batched:
             raise ValueError("kahan compensation is flat-mode only")
         if capacity is not None and not batched:
             raise ValueError("capacity is a batched-plan parameter")
-        dev = resolve_device(device)
+        dev = resolve_device(device if mesh is None else mesh.first_device)
         key = PlanKey(
             m=int(m), n=int(n), batched=batched,
             capacity=None if capacity is None else int(capacity),
             dtype=dtype_name(dtype), backend=backend, chunk=int(chunk),
-            kahan=kahan, device=str(dev))
+            kahan=kahan, device=str(dev), mesh=mesh,
+            axis_names=None if axis_names is None else tuple(axis_names),
+            batch_axis=batch_axis, mode=mode,
+            grains_per_device=int(grains_per_device))
         with self._lock:
             plan = self._plans.get(key)
             if plan is not None:
@@ -336,7 +392,10 @@ class DetEngine:
                 self._hits += 1
                 return plan
         built = None
-        if self.store is not None:
+        # mesh plans are never stored: a mesh is live devices, with no
+        # identity across processes
+        consulted = self.store is not None and key.mesh is None
+        if consulted:
             built = self._restore_from_store(key)
             with self._lock:
                 if built is not None:
@@ -345,7 +404,7 @@ class DetEngine:
                     self._store_misses += 1
         if built is None:
             built = self._build(key)
-            if self.store is not None:
+            if consulted:
                 self._persist_async(key, built)
         with self._lock:
             plan = self._plans.get(key)
@@ -359,6 +418,26 @@ class DetEngine:
                 self._plans.popitem(last=False)
                 self._evictions += 1
         return built
+
+    # ------------------------------------------------------------ execution
+    def det(self, A, *, chunk: int = 2048, kahan: bool = False,
+            backend: str = "cuda", device=None, **mesh_kw) -> torch.Tensor:
+        """Scalar convenience: plan for ``A.shape`` and execute."""
+        dev = _entry_device(A, device, mesh_kw.get("mesh"))
+        A = _as_tensor(A, dev)
+        m, n = A.shape
+        return self.plan(m, n, batched=False, dtype=A.dtype, chunk=chunk,
+                         kahan=kahan, backend=backend, device=dev,
+                         **mesh_kw)(A)
+
+    def det_batched(self, As, *, chunk: int = 2048, backend: str = "cuda",
+                    device=None, **mesh_kw) -> torch.Tensor:
+        """Batched convenience: plan for ``As.shape[1:]`` and execute."""
+        dev = _entry_device(As, device, mesh_kw.get("mesh"))
+        As = _as_tensor(As, dev)
+        _, m, n = As.shape
+        return self.plan(m, n, batched=True, dtype=As.dtype, chunk=chunk,
+                         backend=backend, device=dev, **mesh_kw)(As)
 
     # ------------------------------------------------------------- the cache
     def cache_info(self) -> dict:
@@ -464,7 +543,10 @@ class DetEngine:
     # ------------------------------------------------------------- builders
     def _build(self, key: PlanKey) -> DetPlan:
         m, n = key.m, key.n
-        total = validate_rank_space(m, n, backend=key.backend)
+        total = validate_rank_space(
+            m, n, backend=key.backend,
+            mesh_grains=key.mesh is not None and not key.batched
+            and key.mode == "grains")
         if m > n:
             def execute(A, _batched=key.batched):
                 shape = (A.shape[0],) if _batched else ()
@@ -472,6 +554,8 @@ class DetEngine:
             return DetPlan(key=key, total=total, chunk=0, degenerate=True,
                            table=None, executable=execute,
                            grad_executable=_zeros_grad)
+        if key.mesh is not None:
+            return self._build_mesh(key, total)
         if key.backend == "cuda":
             return self._build_cuda(key, total)
         return self._build_torch(key, total)
@@ -518,6 +602,37 @@ class DetEngine:
         return DetPlan(key=key, total=total,
                        chunk=int(min(key.chunk, max(total, 1))),
                        degenerate=False, table=table, executable=execute,
+                       grad_executable=grad_execute)
+
+
+    def _build_mesh(self, key: PlanKey, total: int) -> DetPlan:
+        from .distributed import (make_batched_distributed_evaluator,
+                                  make_batched_distributed_grad_evaluator,
+                                  make_distributed_evaluator)
+        kw = dict(mesh=key.mesh, axis_names=key.axis_names, chunk=key.chunk,
+                  backend=key.backend)
+        if key.batched:
+            execute = make_batched_distributed_evaluator(
+                key.m, key.n, batch_axis=key.batch_axis, **kw)
+            grad_execute = make_batched_distributed_grad_evaluator(
+                key.m, key.n, batch_axis=key.batch_axis, **kw)
+        else:
+            execute = make_distributed_evaluator(
+                key.m, key.n, grains_per_device=key.grains_per_device,
+                mode=key.mode, **kw)
+            # Scalar mesh plans serve the interactive single-matrix path;
+            # gradient traffic is batched, so the pullback is the
+            # single-device plan's of the same backend on the mesh's first
+            # device (K3 at B = 1 on cuda), built at first use: its width
+            # guard refuses there a grains rank space past the backend's.
+            single = functools.cache(
+                lambda: self._build(PlanKey(*key[:9])))
+
+            def grad_execute(A, ct):
+                return single().grad_executable(A, ct)
+        return DetPlan(key=key, total=total,
+                       chunk=int(min(key.chunk, max(total, 1))),
+                       degenerate=False, table=None, executable=execute,
                        grad_executable=grad_execute)
 
 

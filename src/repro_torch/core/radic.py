@@ -181,7 +181,10 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def _radic_det_flat(A: torch.Tensor, table: torch.Tensor, total: int,
-                    chunk: int, kahan: bool) -> torch.Tensor:
+                    chunk: int, kahan: bool, *,
+                    q_start: int = 0) -> torch.Tensor:
+    """The signed minor sum over the ``total`` ranks from ``q_start``
+    (a mesh shard's range; the whole rank space by default)."""
     m, n = A.shape
     X = A.to(_compute_dtype(A.dtype))
     num_chunks = -(-total // chunk)
@@ -191,7 +194,8 @@ def _radic_det_flat(A: torch.Tensor, table: torch.Tensor, total: int,
     for c in range(num_chunks):
         qs = c * chunk + idx
         valid = qs < total
-        combos = unrank_torch(torch.where(valid, qs, 0), n, m, table)
+        combos = unrank_torch(q_start + torch.where(valid, qs, 0), n, m,
+                              table)
         part = signed_minor_sum(X, combos, valid)
         if kahan:
             y = part - comp
@@ -204,7 +208,8 @@ def _radic_det_flat(A: torch.Tensor, table: torch.Tensor, total: int,
 
 
 def _radic_det_batched_flat_impl(As: torch.Tensor, table: torch.Tensor,
-                                 total: int, chunk: int) -> torch.Tensor:
+                                 total: int, chunk: int, *,
+                                 q_start: int = 0) -> torch.Tensor:
     B, m, n = As.shape
     X = As.to(_compute_dtype(As.dtype))
     num_chunks = -(-total // chunk)
@@ -213,13 +218,15 @@ def _radic_det_batched_flat_impl(As: torch.Tensor, table: torch.Tensor,
     for c in range(num_chunks):
         qs = c * chunk + idx
         valid = qs < total
-        combos = unrank_torch(torch.where(valid, qs, 0), n, m, table)
+        combos = unrank_torch(q_start + torch.where(valid, qs, 0), n, m,
+                              table)
         acc = acc + signed_minor_sum_batched(X, combos, valid)
     return acc.to(As.dtype)
 
 
 def _radic_det_batched_grad_flat(As: torch.Tensor, cts, table: torch.Tensor,
-                                 total: int, chunk: int) -> torch.Tensor:
+                                 total: int, chunk: int, *,
+                                 q_start: int = 0) -> torch.Tensor:
     """Batched cofactor VJP: ``As (B, m, n)``, ``cts (B,)`` → ``(B, m, n)``.
     One shared unranking per chunk pulls back all B cotangents, and every
     chunk's pullback is added to the running gradient: the forward's walk
@@ -234,7 +241,8 @@ def _radic_det_batched_grad_flat(As: torch.Tensor, cts, table: torch.Tensor,
     for c in range(num_chunks):
         qs = c * chunk + idx
         valid = qs < total
-        combos = unrank_torch(torch.where(valid, qs, 0), n, m, table)
+        combos = unrank_torch(q_start + torch.where(valid, qs, 0), n, m,
+                              table)
         g = g + signed_minor_pullback_batched(X, cts, combos, valid)
     return g.to(As.dtype)
 
@@ -258,9 +266,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _entry_device(A, device) -> torch.device:
+def _entry_device(A, device, mesh=None) -> torch.device:
     """A tensor computes on its own device; host data goes to ``device``,
-    which defaults to the card."""
+    which defaults to the card.  With a mesh, both go to the mesh's first
+    device, where its shards' partials are combined."""
+    if mesh is not None:
+        return resolve_device(mesh.first_device)
     if isinstance(A, torch.Tensor):
         return A.device
     return resolve_device(device)
@@ -273,7 +284,9 @@ def _as_tensor(A, device: torch.device) -> torch.Tensor:
 
 
 def radic_det(A, *, chunk: int = 2048, kahan: bool = False,
-              backend: str = "cuda", device=None) -> torch.Tensor:
+              backend: str = "cuda", device=None, mesh=None,
+              axis_names=None, mode: str = "grains",
+              grains_per_device: int = 1) -> torch.Tensor:
     """Radic determinant (paper Definition 3) of one matrix ``A (m, n)``.
 
     Routed through the default :class:`~repro_torch.core.engine.DetEngine`:
@@ -285,18 +298,26 @@ def radic_det(A, *, chunk: int = 2048, kahan: bool = False,
     ``"cuda"``).  The result is differentiable: ``torch.autograd.grad``
     runs the plan's cofactor-form backward (the CUDA backward kernel, or
     the replayed chunk walk of the torch backend).
+
+    With ``mesh`` (a :class:`~repro_torch.core.distributed.Mesh`) the rank
+    space is sharded over the grid's ``axis_names`` (default: all) in the
+    paper's grains (``mode="grains"``, ``grains_per_device`` of them a
+    grid position) or flat (``mode="flat"``), as
+    :func:`~repro_torch.core.distributed.radic_det_distributed` does.
     """
     from .engine import default_engine  # lazy: engine builds on this module
-    dev = _entry_device(A, device)
+    dev = _entry_device(A, device, mesh)
     A = _as_tensor(A, dev)
     m, n = A.shape
     return default_engine().plan(
         m, n, batched=False, dtype=A.dtype, chunk=chunk, kahan=kahan,
-        backend=backend, device=dev).differentiable(A)
+        backend=backend, device=dev, mesh=mesh, axis_names=axis_names,
+        mode=mode, grains_per_device=grains_per_device).differentiable(A)
 
 
 def make_batched_evaluator(m: int, n: int, *, chunk: int = 2048,
-                           backend: str = "cuda", device=None):
+                           backend: str = "cuda", device=None, mesh=None,
+                           axis_names=None, batch_axis: str | None = None):
     """Bind the per-shape state of :func:`radic_det_batched` once.
 
     Returns the :class:`~repro_torch.core.engine.DetPlan` for this shape —
@@ -304,11 +325,16 @@ def make_batched_evaluator(m: int, n: int, *, chunk: int = 2048,
     table, the C(n, m) rank count and the clamped chunk are computed at
     plan time, and the plan runs the same executable as
     :func:`radic_det_batched`, so results are bit-identical to it.
-    ``m > n`` is a zeros program on the plan's device.
+    ``m > n`` is a zeros program on the plan's device.  With ``mesh``
+    the plan shards the batch over ``batch_axis`` and the rank space over
+    the other axes (:func:`radic_det_batched`), on the mesh's first
+    device.
     """
     from .engine import default_engine  # lazy: engine builds on this module
     return default_engine().plan(m, n, batched=True, chunk=chunk,
-                                 backend=backend, device=device)
+                                 backend=backend, device=device, mesh=mesh,
+                                 axis_names=axis_names,
+                                 batch_axis=batch_axis)
 
 
 def aot_compile_batched(m: int, n: int, capacity: int, dtype=np.float32, *,
@@ -330,7 +356,8 @@ def aot_compile_batched(m: int, n: int, capacity: int, dtype=np.float32, *,
 
 
 def radic_det_batched(As, *, chunk: int = 2048, backend: str = "cuda",
-                      device=None) -> torch.Tensor:
+                      device=None, mesh=None, axis_names=None,
+                      batch_axis: str | None = None) -> torch.Tensor:
     """Radic determinants of a stack ``As (B, m, n)`` in one dispatch.
 
     The whole batch shares one (m, n) shape, hence one C(n, m) rank
@@ -338,9 +365,13 @@ def radic_det_batched(As, *, chunk: int = 2048, backend: str = "cuda",
     shaped inputs should be bucketed by shape first; see
     :mod:`repro_torch.launch.det_serve`.  Returns ``(B,)``,
     differentiable like :func:`radic_det`.
+
+    With ``mesh`` the evaluation is sharded rank space × batch over the
+    grid (see
+    :func:`~repro_torch.core.distributed.radic_det_batched_distributed`).
     """
     from .engine import default_engine  # lazy: engine builds on this module
-    dev = _entry_device(As, device)
+    dev = _entry_device(As, device, mesh)
     As = _as_tensor(As, dev)
     if As.ndim != 3:
         raise ValueError(f"expected (B, m, n), got {tuple(As.shape)}")
@@ -349,4 +380,5 @@ def radic_det_batched(As, *, chunk: int = 2048, backend: str = "cuda",
         return torch.zeros((0,), dtype=As.dtype, device=As.device)
     return default_engine().plan(
         m, n, batched=True, dtype=As.dtype, chunk=chunk, backend=backend,
-        device=dev).differentiable(As)
+        device=dev, mesh=mesh, axis_names=axis_names,
+        batch_axis=batch_axis).differentiable(As)

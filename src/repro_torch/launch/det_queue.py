@@ -35,7 +35,10 @@ cotangent=ct)``) ride the same pipeline in batches of their own: the
 stager dispatches the plan's cofactor-form VJP (``DetPlan.grad``) with the
 batch's cotangents, and each request resolves to its ``(m, n)`` array.
 ``persist_dir`` opens the engine's plan store and ``prefill`` warms plan
-families before traffic (DESIGN_PERSIST.md).
+families before traffic (DESIGN_PERSIST.md).  With a ``mesh``
+(:class:`repro_torch.core.distributed.Mesh`) every batch is staged on the
+mesh's first device and sharded rank space × batch over the grid
+(``batch_axis``), as ``radic_det_batched(mesh=...)`` does.
 """
 
 from __future__ import annotations
@@ -373,7 +376,8 @@ class DetQueue:
     def __init__(self, *, chunk: int = 2048, backend: str = "cuda",
                  max_batch: int | None = None,
                  policy: BucketPolicy | None = None,
-                 dtype=np.float32, device=None,
+                 dtype=np.float32, device=None, mesh=None,
+                 batch_axis: str | None = None,
                  pipeline_depth: int = 8, linger_s: float = 0.0,
                  stage_depth: int | None = None,
                  response_buffer: int = 65536,
@@ -390,7 +394,10 @@ class DetQueue:
                 "policy only")
         if max_pending is not None and max_pending < 1:
             raise ValueError("max_pending must be >= 1 (or None)")
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            device if mesh is None else mesh.first_device)
+        self.mesh = mesh
+        self.batch_axis = batch_axis
         self.policy = policy
         self.chunk = chunk
         self.backend = backend
@@ -645,16 +652,16 @@ class DetQueue:
         """The :class:`~repro_torch.core.engine.DetPlan` for one device
         batch.  Keyed as the reference keys it: the ``torch`` backend (the
         jnp counterpart) pins the batch's capacity, the ``cuda`` backend
-        (the pallas counterpart) plans one shape for every batch size, so
-        the plan cache counts what the reference's does on the same
-        traffic.  The cache is LRU-bounded, so a long tail of request
-        shapes re-plans instead of growing without limit."""
+        (the pallas counterpart) and mesh plans take one shape for every
+        batch size, so the plan cache counts what the reference's does on
+        the same traffic.  The cache is LRU-bounded, so a long tail of
+        request shapes re-plans instead of growing without limit."""
         m, n = shape
+        pinned = self.backend == "torch" and self.mesh is None
         return self.engine.plan(
-            m, n, batched=True,
-            capacity=capacity if self.backend == "torch" else None,
+            m, n, batched=True, capacity=capacity if pinned else None,
             dtype=self.dtype, chunk=self.chunk, backend=self.backend,
-            device=self.device)
+            device=self.device, mesh=self.mesh, batch_axis=self.batch_axis)
 
     def prefill(self, entries) -> int:
         """Warm the engine for expected plan families before traffic.

@@ -78,16 +78,19 @@ VERIFY_CHUNK = 1 << 18       # --verify: ranks per step of the torch backend
 
 
 def drain_queue(mats, *, chunk: int = 2048, backend: str = "cuda",
-                max_batch: int = 64, dtype=np.float32, device=None):
+                max_batch: int = 64, dtype=np.float32, device=None,
+                mesh=None, batch_axis=None):
     """Synchronous reference: evaluate every queued matrix in the calling
     thread; returns ``(dets, stats)``.
 
     Stage → dispatch → wait, one group at a time.  ``dets`` is a list of
     floats in arrival order.  ``stats`` maps each (m, n) bucket to a dict
     with ``count``, ``dispatches``, ``ranks`` (minors evaluated, excluding
-    padding), ``wall_s``, ``mats_per_s`` and ``ranks_per_s``.
+    padding), ``wall_s``, ``mats_per_s`` and ``ranks_per_s``.  With a
+    ``mesh`` each group is staged on its first device and sharded over it
+    (``batch_axis`` as in ``radic_det_batched``).
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.first_device)
     out: list[float | None] = [None] * len(mats)
     stats: dict[tuple[int, int], dict] = {}
     for (m, n), idxs in bucket_by_shape(mats).items():
@@ -100,7 +103,8 @@ def drain_queue(mats, *, chunk: int = 2048, backend: str = "cuda",
             for j, i in enumerate(grp):
                 stack[j] = np.asarray(mats[i], dtype=dtype)
             dets = radic_det_batched(torch.from_numpy(stack).to(dev),
-                                     chunk=chunk, backend=backend)
+                                     chunk=chunk, backend=backend,
+                                     mesh=mesh, batch_axis=batch_axis)
             dets = dets.cpu().numpy()
             dispatches += 1
             for j, i in enumerate(grp):

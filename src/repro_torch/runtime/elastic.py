@@ -1,21 +1,23 @@
 """Elastic grid rule: the largest usable (pod, data, model) grid for the
 devices that are healthy now.
 
-Port of the framework-free part of ``repro/runtime/elastic.py``
-(:class:`MeshPlan`, :func:`choose_mesh`), which
-``repro_torch.launch.autoscale.default_max_workers`` uses one level up:
-the serving tier caps its elastic worker pool at
-``choose_mesh(cpu_count, max_model=1).n_devices`` — one serving worker per
-data-parallel slot.  Building a device mesh from a plan (the reference's
-``build_mesh``) belongs to the mesh module of the port, which is not
-ported yet.
+Port of ``repro/runtime/elastic.py``: :func:`choose_mesh` picks the
+grid, :func:`build_mesh` lays devices on it as a
+:class:`~repro_torch.core.distributed.Mesh`.  The serving tier reuses the
+grid rule one level up: ``repro_torch.launch.autoscale.default_max_workers``
+caps its elastic worker pool at ``choose_mesh(cpu_count,
+max_model=1).n_devices`` — one serving worker per data-parallel slot.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["choose_mesh", "MeshPlan"]
+import numpy as np
+
+from repro_torch.core.distributed import Mesh, default_devices
+
+__all__ = ["choose_mesh", "build_mesh", "MeshPlan"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,3 +49,15 @@ def choose_mesh(n_devices: int, *, max_model: int = 16,
         return MeshPlan((want_pods, rest // want_pods, model),
                         ("pod", "data", "model"), usable)
     return MeshPlan((rest, model), ("data", "model"), usable)
+
+
+def build_mesh(plan: MeshPlan, devices=None) -> Mesh:
+    """The first ``plan.n_devices`` of ``devices`` (default: every visible
+    card; ``RuntimeError`` without one) on ``plan``'s grid.  A device may
+    repeat: ``["cpu"] * 8`` is an 8-slot CPU grid."""
+    devices = list(devices) if devices is not None else default_devices()
+    if len(devices) < plan.n_devices:
+        raise AssertionError("not enough healthy devices")
+    arr = np.empty(plan.n_devices, dtype=object)
+    arr[:] = devices[:plan.n_devices]
+    return Mesh(arr.reshape(plan.shape), plan.axis_names)

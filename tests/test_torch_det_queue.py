@@ -352,3 +352,81 @@ def test_prefilled_family_is_hit_by_the_first_batch(backend, pin):
     for A, got in zip(mats, dets):
         want = radic_det_oracle(A)
         assert abs(got - want) <= 2e-3 * max(1.0, abs(want))
+
+
+# ------------------------------------------------------------- on a mesh
+def _grid(*shape, names=("data", "model")):
+    from repro_torch.core import Mesh
+    return Mesh(np.full(shape, CPU, dtype=object), names[:len(shape)])
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_mesh_queue_and_drain_match_single_device(backend):
+    """``DetQueue(mesh=...)`` and ``drain_queue(mesh=...)`` on a (2, 4)
+    CPU grid answer as one device does, within the reference's
+    between-backend tolerance; m > n still answers 0."""
+    from repro_torch.launch.det_serve import drain_queue
+    mats = _mats(np.random.default_rng(9), 24)
+    pol = BucketPolicy(max_batch=CAP, mode="never")
+    with DetQueue(chunk=128, policy=pol, device=CPU, backend=backend) as q:
+        want, _ = q.serve(mats, timeout=120)
+    with DetQueue(chunk=128, policy=pol, backend=backend,
+                  mesh=_grid(2, 4)) as q:
+        got, stats = q.serve(mats, timeout=120)
+    assert stats["completed"] == len(mats)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+    drained, _ = drain_queue(mats, chunk=128, backend=backend,
+                             max_batch=CAP, mesh=_grid(2, 4))
+    np.testing.assert_allclose(drained, want, rtol=1e-3, atol=1e-4)
+
+
+REF_ODD_GROUP = """
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+import jax, numpy as np
+from jax.sharding import Mesh
+from repro.launch.det_queue import BucketPolicy, DetQueue
+mesh = Mesh(np.array(jax.devices()), ("data",))
+mats = [np.random.default_rng(i).normal(size=(2, 5)).astype(np.float32)
+        for i in range(3)]
+for pol in (BucketPolicy(), BucketPolicy(pin_capacity=True)):
+    with DetQueue(mesh=mesh, batch_axis="data", policy=pol) as q:
+        for f in q.submit_many(mats):
+            try:
+                print("VALUE", f.result(timeout=120))
+            except ValueError as e:
+                print("RAISED", "not divisible" in str(e))
+"""
+
+
+def test_batch_axis_with_exact_capacities_refuses_an_odd_group():
+    """With ``batch_axis`` and exact capacities (the default policy) a
+    group of three fails the divisibility check, in the reference's queue
+    too; a pinned capacity serves it."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    env.pop("XLA_FLAGS", None)
+    ref = subprocess.run([sys.executable, "-c", REF_ODD_GROUP],
+                         capture_output=True, text=True, env=env, cwd=repo,
+                         timeout=300)
+    lines = ref.stdout.split()
+    assert lines[:6] == ["RAISED", "True"] * 3, ref.stderr[-2000:]
+    assert lines[6::2] == ["VALUE"] * 3
+    mats = [np.random.default_rng(i).normal(size=(2, 5)).astype(np.float32)
+            for i in range(3)]
+    mesh = _grid(2, names=("data",))
+    with DetQueue(mesh=mesh, batch_axis="data") as q:
+        for f in q.submit_many(mats):
+            with pytest.raises(ValueError, match="not divisible"):
+                f.result(timeout=120)
+    with DetQueue(mesh=mesh, batch_axis="data",
+                  policy=BucketPolicy(pin_capacity=True)) as q:
+        got = [f.result(timeout=120) for f in q.submit_many(mats)]
+    np.testing.assert_allclose(got, [radic_det_oracle(A) for A in mats],
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got, [float(v) for v in lines[7::2]],
+                               rtol=1e-3, atol=1e-4)

@@ -228,19 +228,14 @@ def test_default_engine_is_shared_and_swappable():
 
 
 # ------------------------------------------------- the engine's exports
-MESH_EXPORTS = {"plan_grains", "radic_det_distributed",
-                "radic_det_batched_distributed", "make_distributed_evaluator",
-                "make_batched_distributed_evaluator"}
-
-
 def test_core_exports_the_references_names():
     """``repro_torch.core`` exports every name ``repro.core`` does (the
-    jnp helpers under their torch names), but the mesh entries, which
-    wait for the mesh module."""
+    jnp helpers under their torch names), the mesh entries included, and
+    ``Mesh``, the counterpart of ``jax.sharding.Mesh``."""
     import repro.core as ref_core
     import repro_torch.core as core
     want = {n.replace("_jnp", "_torch") for n in ref_core.__all__}
-    assert want - MESH_EXPORTS == set(core.__all__)
+    assert want | {"Mesh"} == set(core.__all__)
 
 
 @pytest.mark.parametrize("cap", [1, 2, 8])
@@ -342,3 +337,41 @@ def test_degenerate_batched_evaluator_is_zeros_on_device(backend):
         np.float32))
     assert isinstance(out, torch.Tensor) and out.device.type == "cpu"
     assert out.shape == (3,) and not out.any()
+
+
+# ------------------------------------------- det / det_batched conveniences
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_det_conveniences_are_the_plan_bit_for_bit(backend):
+    """``DetEngine.det``/``det_batched`` plan for ``A.shape`` and execute
+    (the reference's engine.py:409-423), on a mesh too."""
+    from repro_torch.core import Mesh
+    rng = np.random.default_rng(21)
+    A = torch.from_numpy(rng.normal(size=(3, 8)).astype(np.float32))
+    As = torch.from_numpy(rng.normal(size=(4, 3, 8)).astype(np.float32))
+    eng = DetEngine()
+    kw = dict(chunk=64, backend=backend)
+    assert torch.equal(eng.det(A, **kw),
+                       eng.plan(3, 8, batched=False, device=CPU, **kw)(A))
+    assert torch.equal(eng.det_batched(As, **kw),
+                       eng.plan(3, 8, device=CPU, **kw)(As))
+    mesh = Mesh(np.full((2, 2), CPU, dtype=object), ("data", "model"))
+    assert torch.equal(
+        eng.det(A, mesh=mesh, mode="flat", **kw),
+        eng.plan(3, 8, batched=False, mesh=mesh, mode="flat", **kw)(A))
+    assert torch.equal(
+        eng.det_batched(As, mesh=mesh, batch_axis="data", **kw),
+        eng.plan(3, 8, mesh=mesh, batch_axis="data", **kw)(As))
+
+
+def test_mesh_plans_are_cached_across_calls():
+    """Equal meshes hash equal, so repeated distributed calls reuse one
+    planned evaluator (grain starts unranked once, not per call)."""
+    from repro_torch.core.distributed import _default_mesh
+    eng = DetEngine()
+    A = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 6)).astype(np.float32))
+    got1 = eng.det(A, mesh=_default_mesh(CPU))
+    got2 = eng.det(A, mesh=_default_mesh(CPU))
+    info = eng.cache_info()
+    assert info["misses"] == 1 and info["hits"] == 1
+    assert torch.equal(got1, got2)

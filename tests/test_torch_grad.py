@@ -432,3 +432,40 @@ def test_queue_grad_degenerate_and_errors():
             bad.result(timeout=120)
         stats = q.snapshot()
     assert stats["dispatches"] == 0 and stats["completed"] == 1
+
+
+# --------------------------------------------------------- mesh plans
+def _grid(*shape):
+    from repro_torch.core import Mesh
+    return Mesh(np.full(shape, CPU, dtype=object), ("data", "model"))
+
+
+@pytest.mark.parametrize("mode", ["grains", "flat"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_scalar_mesh_grad_is_the_single_device_plans(backend, mode):
+    """A scalar mesh plan pulls back through the single-device plan of its
+    backend on the mesh's first device: the same bits, through
+    ``plan.grad`` and through autograd of ``radic_det(mesh=...)``."""
+    A = _mat(31, 3, 8)
+    eng = DetEngine()
+    kw = dict(batched=False, chunk=64, backend=backend)
+    mesh_plan = eng.plan(3, 8, mesh=_grid(2, 4), mode=mode, **kw)
+    single = eng.plan(3, 8, device=CPU, **kw)
+    assert torch.equal(mesh_plan.grad(A, 1.5), single.grad(A, 1.5))
+    T = torch.from_numpy(A).requires_grad_(True)
+    (got,) = torch.autograd.grad(
+        radic_det(T, mesh=_grid(2, 4), mode=mode, chunk=64,
+                  backend=backend), T)
+    assert torch.equal(got, single.grad(A, 1.0))
+    np.testing.assert_allclose(got.numpy(), _ref_grad(A), rtol=1e-3,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("backend,m,n", [("cuda", 16, 40), ("torch", 30, 70)])
+def test_grains_grad_past_the_width_raises_at_first_grad(backend, m, n):
+    """A grains plan has no width limit, but its pullback is the
+    single-device plan's, whose guard raises at the first gradient."""
+    plan = DetEngine().plan(m, n, batched=False, mesh=_grid(2, 4),
+                            backend=backend)
+    with pytest.raises(OverflowError):
+        plan.grad(np.ones((m, n), np.float32), 1.0)

@@ -47,13 +47,18 @@ def test_port_runs_with_jax_unimportable():
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.launch.det_serve, repro_torch.runtime\n"
         "import repro_torch.launch.det_front, repro_torch.launch.autoscale\n"
-        "import repro_torch.checkpoint\n"
+        "import repro_torch.checkpoint, repro_torch.core.distributed\n"
         "from repro_torch.core import radic_det_batched, radic_det_oracle\n"
         "As = np.random.default_rng(0).normal(size=(3, 3, 7))"
         ".astype(np.float32)\n"
         "got = radic_det_batched(As, device='cpu')\n"
         "want = [radic_det_oracle(a) for a in As]\n"
         "assert np.allclose(got.numpy(), want, rtol=1e-3, atol=1e-4)\n"
+        "from repro_torch.core import Mesh, radic_det_distributed\n"
+        "from repro_torch.runtime import build_mesh, choose_mesh\n"
+        "mesh = build_mesh(choose_mesh(4, max_model=2), ['cpu'] * 4)\n"
+        "got = radic_det_distributed(As[0], mesh=mesh, mode='flat')\n"
+        "assert abs(float(got) - want[0]) <= 2e-3 * max(1, abs(want[0]))\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
         "print('PORT_OK')\n")

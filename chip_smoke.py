@@ -65,9 +65,13 @@ per source, all at once) and runs these phases, each printing its lines:
    kernel at two rows a lane) and at (256, 250, 250) in float64 (the
    block kernel on a global copy); and one shard of phase 14's grid: K2
    at an eighth of (10, 34)'s ranks, K1 and K3 at (32, 8, 31) over a
-   quarter of its ranks.
-   It runs last, after 10 to 14, so that every kernel it times has
-   passed its checks;
+   quarter of its ranks.  A profiler window counts toward a kernel's
+   time only if it recorded that kernel's own launches, and the phase
+   fails when fewer than three of eight windows did.
+   It runs after 10 to 14, so that every kernel it times has passed
+   its checks, and before 15 and 16 (timed after them once, it saw no
+   record of K3's B = 1 launches in six profiler windows; the script
+   ends with a probe of that, printed, not held);
 10. the wide path (m >= 17): the warp kernels of K1, K2 and K4 against
    float64 plain at (3, 17, 20), (2, 20, 22), (3, 24, 26), (1, 33, 33),
    (2, 32, 33) and ranges of (3, 20, 30), K4 == K1, the B = 1 entry ==
@@ -142,7 +146,36 @@ per source, all at once) and runs these phases, each printing its lines:
    capacity) on the grid serving phase 4's 512 requests, K1 launches eight
    a dispatch, every answer within ``TOL`` of float64 plain, and both
    again on one device; each leg's wall beside the single-device wall of
-   the same shape and phase 4's.
+   the same shape and phase 4's;
+15. LM serving (``repro_torch.launch.serve``): llama3-8b at full width in
+   bf16 (32 layers, 4096 wide, 128,256 vocab; random weights from a seed),
+   4 prompts of 16 tokens and 32 greedy steps, its prefill ms, decode ms
+   per step and tok/s beside the decode bound (the layer and head weights
+   read once at 3.35 TB/s); a decode step back to back by CUDA events and
+   by the profiler's device time (the host's share) and a warm prefill;
+   the head's product at a decode step (bf16 operands, float32 output)
+   against float32 operands from a copy of the head, device times and
+   agreement within ``TOL``; a float32 copy of the same weights whose
+   prefill and decode logits equal its forward's within 2e-3 (|d| <= 2e-3
+   (1 + |f|), the reference's decode rule), and the bf16 served logits
+   against that float32 forward by relative Frobenius error (<= 5e-2),
+   with cuBLAS's reduced-precision bf16 reductions on (the serve path:
+   torch's default) and off; an EOS leg whose live count drops; then
+   gemma2-9b at full width cut to 2 layers (one local, one global) in
+   float32 on a 4,160-token prompt: ``attn_chunk=1024`` against dense
+   within ``TOL``, the window masking real positions (the logits past
+   4,096 move without it, those before stay bit for bit), and prefill + 4
+   decode steps against the forward within 2e-3, dense and chunked; the
+   memory freed after each model;
+16. the examples (``examples/quickstart_torch.py`` and
+   ``retrieval_torch.py``) run in this process on the card, each with
+   the launch counts set to 0 just before it and read just after: the
+   quickstart's four determinants within 1e-3 of -1.1201943 through K2,
+   the retrieval's parity within 1e-5 and its accuracy lines, K1 and K3
+   launched; then K1 and K3 (random cotangents) on each library video's
+   window stack, the (7..17, 4, 6) shapes the retrieval launches them
+   at, against float64 plain, with the counts set to 0 and read around
+   that check too.
 
 Every check holds ``|got - want| <= 2e-3 * max(1, |want|)`` (the
 reference's tolerance against its oracles), ``want`` from the plain
@@ -280,7 +313,33 @@ def busy_us(events) -> float:
     return busy
 
 
-def device_ms(fn, reps: int = 10, windows: int = 3) -> float:
+def profile_window(fn, reps: int) -> dict[str, list[float]]:
+    """``reps`` calls of ``fn`` under ``torch.profiler``: the durations, in
+    us, of the device events (kernels, copies, fills) it recorded, by
+    name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return by_name
+
+
+def holds(by_name: dict[str, list[float]], kernel: str | None) -> bool:
+    """Whether a window recorded ``kernel`` (a part of its name; any
+    device event where ``kernel`` is None)."""
+    return any(kernel is None or kernel in name for name in by_name)
+
+
+def device_ms(fn, reps: int = 10, windows: int = 3,
+              kernel: str | None = None) -> float:
     """Device time per call, ms: the median over ``windows`` windows of
     ``reps`` calls under ``torch.profiler`` (after a warm-up) of, for each
     device event name (kernel, copy or fill), the mean duration of its
@@ -290,35 +349,54 @@ def device_ms(fn, reps: int = 10, windows: int = 3) -> float:
     8 of 10 kept in most windows, none in a few), so a sum over a window
     divided by ``reps`` reads low; a mean over the recorded events does
     not depend on how many were kept, and the median sets aside a window
-    that read wrong all the same (one in about thirty did)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    that read wrong all the same (one in about thirty did).  A window
+    counts only if it recorded ``kernel``, the timed kernel's own name
+    (any device event for a library call or a model step, where it is
+    None): one that lost it would read the rest of the call (a fill's
+    0.02 ms for K1's 1 ms) as the kernel's time.  Of those, only the
+    windows that saw the most event names count, so a lost reduction does
+    not read low either.  It fails when fewer than ``windows`` of
+    ``windows + 5`` windows recorded the kernel."""
     fn()
     torch.cuda.synchronize()
-    per_call, kept = [], []
-    for _ in range(windows + 3):  # up to three windows without events
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        by_name: dict[str, list[float]] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name.setdefault(e.name, []).append(
-                    e.time_range.elapsed_us())
-        if by_name:
-            per_call.append(sum(-(-len(d) // reps) * sum(d) / len(d)
-                                for d in by_name.values()))
-            kept.append(sum(len(d) for d in by_name.values()))
-            if len(per_call) == windows:
-                break
-    check(bool(per_call), "the profiler saw no device activity")
-    if any(k % reps for k in kept):
+    per_call, kept, names, lost = [], [], [], 0
+    for _ in range(windows + 5):
+        by_name = profile_window(fn, reps)
+        if not holds(by_name, kernel):
+            lost += 1
+            continue
+        per_call.append(sum(-(-len(d) // reps) * sum(d) / len(d)
+                            for d in by_name.values()))
+        kept.append(sum(len(d) for d in by_name.values()))
+        names.append(len(by_name))
+        if len(per_call) == windows:
+            break
+    check(len(per_call) == windows,
+          f"the profiler recorded {kernel or 'no device event'} in only "
+          f"{len(per_call)} of {len(per_call) + lost} windows")
+    if lost or any(k % reps for k in kept):
         print(f"device_ms: the profiler kept {kept} device events of "
-              f"{reps} calls a window; means over those", flush=True)
-    return sorted(per_call)[len(per_call) // 2] / 1e3
+              f"{reps} calls a window ({names} names); {lost} windows "
+              f"without {kernel or 'device events'} set aside; means over "
+              f"those", flush=True)
+    full = sorted(t for t, n in zip(per_call, names) if n == max(names))
+    return full[len(full) // 2] / 1e3
+
+
+def kernel_name(key: str, m: int) -> str:
+    """The CUDA kernel that a ``kernels`` row (``K1`` .. ``K6``, with any
+    suffix) launches at ``m``: the register kernels up to 16, the warp
+    kernels above (K6's up to 64, its block kernel past that)."""
+    fam = key[:2]
+    if fam == "K5":
+        return "unrank_kernel"
+    if fam == "K6":
+        return ("minor_det_kernel" if m <= 16 else "minor_det_warp_kernel"
+                if m <= 64 else "minor_det_block_kernel")
+    if fam == "K3":
+        return "radic_grad_partial_kernel" if m <= 16 \
+            else "radic_grad_warp_kernel"
+    return "radic_partial_kernel" if m <= 16 else "radic_warp_partial_kernel"
 
 
 class Errors:
@@ -2154,6 +2232,366 @@ def phase_mesh(errs: Errors, gen: torch.Generator, serve: dict) -> dict:
             "total": total}
 
 
+# --------------------------------------------------------------- LM serving
+LM_SERVE_ARGS = ["--arch", "llama3-8b", "--batch", "4", "--prompt-len", "16",
+                 "--gen", "32"]
+LM_PARAMS = 8_030_261_248      # llama3_8b.py's CONFIG, embed and head apart
+GEMMA_PROMPT = 4160            # past gemma2's 4,096 window
+GEMMA_GEN = 4
+
+
+def decode_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (1 + |want|): at most ``tol`` exactly where
+    ``assert_allclose(got, want, rtol=tol, atol=tol)`` passes, the
+    reference's decode == forward rule at ``tol = 2e-3``."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs() / (1 + want.abs())).max().item()
+
+
+def rel_fro(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want||_F / ||want||_F."""
+    got, want = got.double(), want.double()
+    return (torch.linalg.vector_norm(got - want)
+            / torch.linalg.vector_norm(want)).item()
+
+
+def free_card() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def teacher_forced(model, prompts: torch.Tensor, gen: torch.Tensor,
+                   max_len: int) -> torch.Tensor:
+    """Prefill the prompts, then decode ``gen``'s tokens one a step: the
+    (B, 1 + G, V) float32 logits of the prefill and of each step."""
+    with torch.inference_mode():
+        logits, cache = model.prefill(prompts, max_len)
+        out = [logits]
+        for t in range(gen.shape[1]):
+            logits, cache = model.decode_step(cache, gen[:, t:t + 1])
+            out.append(logits)
+        return torch.stack(out, 1)
+
+
+def with_cfg(model, cfg):
+    """``model`` under another config of the same shapes, sharing its
+    params (a knob of the forward, such as ``attn_chunk``)."""
+    import copy
+    twin = copy.copy(model)
+    twin.cfg = cfg
+    return twin
+
+
+def phase_lm_serve() -> dict:
+    """Phase 15: ``repro_torch.launch.serve`` on llama3-8b at full width
+    in bf16, held against a float32 copy of the same weights; its EOS leg;
+    then gemma2-9b at full width cut to two layers on a prompt past its
+    window."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    print(card_line(), flush=True)
+    reduced = torch.backends.cuda.matmul.\
+        allow_bf16_reduced_precision_reduction
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.run(LM_SERVE_ARGS)
+    model = out["model"]
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == (32, 4096, 128256)
+          and model.embed.dtype == cfg.adtype == torch.bfloat16,
+          f"llama3-8b is not at full width in bf16: {cfg}")
+    check(n_params == LM_PARAMS, f"{n_params} params, not {LM_PARAMS}")
+    served = torch.stack(out["logits"], 1)                  # (B, 33, V)
+    check(bool(torch.isfinite(served).all()), "served logits not finite")
+    B, P, G = 4, 16, 32
+    gen = torch.as_tensor(out["tokens"], device="cuda").int()
+    prompts = torch.as_tensor(out["prompts"], device="cuda")
+    check(tuple(gen.shape) == (B, G), f"generated {tuple(gen.shape)}")
+    check(bool((gen.long() == served[:, :G].argmax(-1)).all()),
+          "served tokens are not the argmax of the served logits")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.layers.parameters()) + \
+        model.lm_head.numel() * model.lm_head.element_size()
+    bound = weight_bytes / PEAK_BYTES * 1e3
+    print(f"LM serve llama3-8b bf16 (B={B}, prompt {P}, gen {G}): "
+          f"{n_params} params; prefill {out['prefill_ms']:.3f} ms, decode "
+          f"{out['decode_ms']:.3f} ms/step, {out['tok_s']:.1f} tok/s; "
+          f"decode bound {bound:.3f} ms ({weight_bytes / 1e9:.3f} GB of "
+          f"layer and head weights at {PEAK_BYTES / 1e12:.2f} TB/s); "
+          f"allow_bf16_reduced_precision_reduction={reduced}", flush=True)
+    with torch.inference_mode():
+        _, cache = model.prefill(prompts, P + G)
+        tok = gen[:, :1]
+        step_ms = cuda_ms(lambda: model.decode_step(cache, tok), min_reps=5)
+        dev_ms = device_ms(lambda: model.decode_step(cache, tok), reps=5)
+        del cache
+        pre_ms = cuda_ms(lambda: model.prefill(prompts, P + G))
+    print(f"LM decode step back to back (no per-step host sync): "
+          f"{step_ms:.3f} ms (CUDA events), {dev_ms:.3f} ms of device "
+          f"time (profiler): the host's share {1 - dev_ms / step_ms:.1%}; "
+          f"bound {bound:.3f} ms; a warm prefill {pre_ms:.3f} ms (the same "
+          f"bytes bound)", flush=True)
+
+    # the head at a decode step: bf16 operands with float32 output (the
+    # serve path) against float32 operands, a float32 copy of the bf16
+    # head made each call (this slice's first head), on the same x
+    from repro_torch.models.lm import f32_product
+    w = model.lm_head
+    hx = torch.randn(B, 1, cfg.d_model, device="cuda", generator=torch.
+                     Generator("cuda").manual_seed(3)).to(cfg.adtype)
+
+    def copied():
+        return torch.matmul(hx.float(), w.float())
+
+    with torch.inference_mode():
+        head_ms = device_ms(lambda: f32_product(hx, w), reps=5)
+        copy_ms = device_ms(copied, reps=5)
+        r = rel_err(f32_product(hx, w), copied())
+    head_bound = w.numel() * w.element_size() / PEAK_BYTES * 1e3
+    print(f"LM head at a decode step ({B} x {cfg.d_model} @ {cfg.d_model}"
+          f" x {cfg.vocab_size} bf16): float32 output from bf16 operands "
+          f"{head_ms:.4f} ms of device time, float32 operands from a copy "
+          f"{copy_ms:.4f} ms ({copy_ms - head_ms:.4f} ms more, "
+          f"{(copy_ms - head_ms) / (dev_ms + copy_ms - head_ms):.1%} of a "
+          f"step that made the copy); bound {head_bound:.4f} ms (the head "
+          f"read once); rel_err {r:.3e} (tol {TOL:g})", flush=True)
+    check(r <= TOL, f"LM head: bf16 operands vs float32 {r:.3e} > {TOL:g}")
+    del hx
+
+    bf_on = teacher_forced(model, prompts, gen, P + G)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        not reduced
+    bf_off = teacher_forced(model, prompts, gen, P + G)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        reduced
+    print(f"LM teacher-forced bf16 == served logits bit for bit: "
+          f"{torch.equal(bf_on, served)}", flush=True)
+
+    # a float32 copy of the same weights (bf16 -> float32 is exact)
+    m32 = build_model(cfg.replace(param_dtype="float32", dtype="float32"))
+    with torch.no_grad():
+        for (n32, p32), (n16, p16) in zip(m32.named_parameters(),
+                                          model.named_parameters()):
+            check(n32 == n16, f"{n32} != {n16}")
+            p32.copy_(p16)
+    seq = torch.cat([prompts, gen.long()], 1)               # (B, P + G)
+    with torch.inference_mode():
+        full32 = m32.forward(seq)[0][:, P - 1:]             # (B, G + 1, V)
+    dec32 = teacher_forced(m32, prompts, gen, P + G)
+    e = decode_err(dec32, full32)
+    print(f"LM float32 copy: prefill + {G} decode steps vs forward: "
+          f"max |d|/(1+|f|) = {e:.3e} (tol 2e-3)", flush=True)
+    check(e <= 2e-3, f"float32 decode vs forward {e:.3e} > 2e-3")
+    errs = {"served": rel_fro(served, full32),
+            f"reduced={reduced}": rel_fro(bf_on, full32),
+            f"reduced={not reduced}": rel_fro(bf_off, full32)}
+    agree = (full32[:, :G].argmax(-1) == gen.long()).float().mean().item()
+    print(f"LM bf16 vs float32 forward, relative Frobenius error (tol "
+          f"5e-2): " + ", ".join(f"{k} {v:.4e}" for k, v in errs.items())
+          + f"; float32 greedy picks the served token at {agree:.1%} of "
+          f"steps; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB", flush=True)
+    check(errs["served"] <= 5e-2,
+          f"bf16 served logits vs float32: {errs['served']:.4e} > 5e-2")
+    first = out["tokens"]
+    result = {"prefill_ms": out["prefill_ms"], "decode_ms": out["decode_ms"],
+              "tok_s": out["tok_s"], "bound_ms": bound, "step_ms": step_ms,
+              "warm_prefill_ms": pre_ms, "head_ms": head_ms,
+              "head_copy_ms": copy_ms,
+              "device_ms": dev_ms, "rel_fro": errs, "decode_err": e}
+    del out, model, m32, served, bf_on, bf_off, full32, dec32
+    free_card()
+
+    # the EOS leg: the token slot 0 emits at step 1 ends slot 0 there
+    # (serve checks each decode step's token; the prefill's is never EOS)
+    eos = int(first[0, 1])
+    leg = serve.run(LM_SERVE_ARGS + ["--eos", str(eos)])
+    got = leg["tokens"]
+    stop = 1
+    print(f"LM EOS leg (--eos {eos}): live={leg['live']}/{B}, "
+          f"{leg['n_live_tokens']} live tokens of {B * G}", flush=True)
+    check(leg["live"] < B and leg["n_live_tokens"] < B * G,
+          "the EOS leg's live count did not drop")
+    check(np.array_equal(got[0, :stop + 1], first[0, :stop + 1])
+          and bool((got[0, stop:] == eos).all()),
+          "slot 0 does not end at its EOS")
+    del leg
+    free_card()
+    phase_gemma_window()
+    return result
+
+
+def phase_gemma_window() -> None:
+    """gemma2-9b at full width cut to two layers (local, then global),
+    float32, batch 1, a prompt of 4,160 tokens: the dense forward against
+    ``attn_chunk=1024`` and against prefill + decode, and the window
+    masking real positions."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("gemma2-9b").replace(n_layers=2, param_dtype="float32",
+                                          dtype="float32")
+    check(cfg.is_local_layer(0) and not cfg.is_local_layer(1)
+          and cfg.attn_window == 4096, "gemma2's layers are not local, "
+          "global")
+    model = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    S, G = GEMMA_PROMPT, GEMMA_GEN
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, S + G)), device="cuda")
+    with torch.inference_mode():
+        full = model.forward(toks)[0]                       # (1, S + G, V)
+        check(bool(torch.isfinite(full).all()), "gemma2 logits not finite")
+        chunked = with_cfg(model, cfg.replace(attn_chunk=1024)).forward(
+            toks)[0]
+        r = rel_err(chunked, full)
+        del chunked
+        nowin = with_cfg(model, cfg.replace(attn_window=None)).forward(
+            toks)[0]
+        inside = torch.equal(nowin[:, :4096], full[:, :4096])
+        moved = (nowin[:, 4096:] - full[:, 4096:]).abs().max().item()
+        del nowin
+    print(f"gemma2-9b (2 layers, f32, prompt {S}): attn_chunk=1024 vs dense"
+          f" rel_err={r:.3e} (tol {TOL:g}); without the window the first "
+          f"4096 positions are bit for bit the same: {inside}, the later "
+          f"ones move by up to {moved:.3e}", flush=True)
+    check(r <= TOL, f"gemma2 chunked vs dense {r:.3e} > {TOL:g}")
+    check(inside and moved > 0, "the window does not mask real positions")
+    for chunk in (0, 1024):
+        m = with_cfg(model, cfg.replace(attn_chunk=chunk))
+        dec = teacher_forced(m, toks[:, :S], toks[:, S:], S + G)[:, :G]
+        e = decode_err(dec, full[:, S - 1:S + G - 1])
+        print(f"gemma2-9b prefill (attn_chunk={chunk}) + {G} decode steps"
+              f" vs forward: max |d|/(1+|f|) = {e:.3e} (tol 2e-3)",
+              flush=True)
+        check(e <= 2e-3, f"gemma2 decode vs forward {e:.3e} > 2e-3")
+    del model, full
+    free_card()
+
+
+# ------------------------------------------------------------ the examples
+QUICKSTART_LABELS = ("oracle (numpy enumeration)",
+                     "flat torch (rank-parallel)", "fused CUDA kernel",
+                     "mesh-distributed grains")
+
+
+def run_example(name: str, argv: list[str]):
+    """Run ``examples/<name>``'s ``main(argv)`` in this process (so the
+    launch counts see its kernels): what it printed, and the module."""
+    import contextlib
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name[:-3]}", ROOT / "examples" / name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mod.main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return buf.getvalue(), mod
+
+
+def phase_examples(errs: Errors, gen: torch.Generator) -> dict:
+    """Phase 16: the port's two examples on the card, each driven with
+    the launch counts set to 0 just before it and read just after; then
+    K1 and K3 at the retrieval's shapes against float64 plain."""
+    import re
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    out, _ = run_example("quickstart_torch.py", [])
+    quick = launch_counts()
+    for label in QUICKSTART_LABELS:
+        m = re.search(re.escape(label) + r"\s*: (-?[0-9.]+)", out)
+        check(bool(m) and abs(float(m.group(1)) + 1.1201943) < 1e-3,
+              f"quickstart's {label!r} line is off")
+    check(quick["radic_partial_cuda"] > 0, "the quickstart launched no K2")
+    reset_launch_counts()
+    out, retrieval = run_example("retrieval_torch.py", [])
+    retr = launch_counts()
+    parity = re.search(r"parity: worst \|diff\| = ([0-9.e+-]+)", out)
+    acc = re.search(r"similarity (\d+)/12, gradient-refined (\d+)/12", out)
+    check(bool(parity) and float(parity.group(1)) <= 1e-5,
+          "retrieval's parity line is off")
+    check(bool(acc) and int(acc.group(2)) >= max(10, int(acc.group(1))),
+          "retrieval degraded")
+    check(retr["radic_batched_partial_cuda"] > 0
+          and retr["radic_batched_grad_partial_cuda"] > 0,
+          "retrieval launched no K1 or no K3")
+    shown = {k: v for k, v in retr.items() if v}
+    print(f"examples: quickstart K2 launches {quick['radic_partial_cuda']};"
+          f" retrieval launches {json.dumps(shown)}", flush=True)
+    reset_launch_counts()
+    held = hold_retrieval_shapes(errs, gen, retrieval)
+    print(f"examples: K1 and K3 held at the retrieval's window stacks "
+          f"{held} (launches {json.dumps(launch_counts())}, not counted "
+          f"above)", flush=True)
+    return {"K2": quick["radic_partial_cuda"],
+            "K1": retr["radic_batched_partial_cuda"],
+            "K3": retr["radic_batched_grad_partial_cuda"]}
+
+
+def profiler_probe(grad_A: torch.Tensor) -> None:
+    """After the LM phases: six profiler windows of ten launches of K3's
+    B = 1 entry at phase 9's matrix, and how many launches each recorded.
+    Printed, not held (phase 9 times before the LM phases: timed after
+    them once, it found no record of these launches in six windows)."""
+    from repro_torch.core.engine import rank_table
+    from repro_torch.kernels import ops
+    m, n = grad_A.shape
+    table = rank_table(n, m, backend="cuda", device="cuda")
+    one = torch.ones((), device="cuda")
+
+    def call():
+        return ops.radic_det_grad_cuda(grad_A, one, table=table)
+
+    call()
+    torch.cuda.synchronize()
+    name = kernel_name("K3", m)
+    seen = [(sum(len(d) for k, d in w.items() if name in k),
+             sum(len(d) for d in w.values()))
+            for w in (profile_window(call, 10) for _ in range(6))]
+    print(f"profiler after the LM phases: K3 B=1 ({m},{n}), 10 launches a "
+          f"window; {name} records, of all device records, per window: "
+          f"{seen}", flush=True)
+
+
+def hold_retrieval_shapes(errs: Errors, gen: torch.Generator,
+                          retrieval) -> list:
+    """K1 and K3 (random cotangents) on the window stack of each video of
+    the retrieval example's library, the (K, 4, 6) shapes its signatures
+    and refinement launch them at, against float64 plain."""
+    from repro_torch.core.engine import rank_table
+    from repro_torch.core.pascal import comb
+    from repro_torch.kernels import launch_counts, ops
+    from repro_torch.kernels.radic_fused import (
+        radic_batched_grad_partial_plain, radic_batched_partial_plain)
+
+    rng = np.random.default_rng(0)       # the example's library, seed 0
+    library = [rng.normal(size=(retrieval.M, rng.integers(18, 40)))
+               .astype(np.float32) for _ in range(12)]
+    shapes = []
+    for feats in library:
+        As = retrieval.window_stack(torch.from_numpy(feats).cuda())
+        B, m, n = As.shape
+        total = comb(n, m)
+        table = rank_table(n, m, backend="cuda", device="cuda")
+        cts = torch.randn(B, device="cuda", generator=gen)
+        label = f"retrieval ({B},{m},{n}) C={total}"
+        errs.hold("K1", label, ops.radic_det_batched_cuda(As),
+                  radic_batched_partial_plain(As, table, 0, total,
+                                              dtype=torch.float64))
+        errs.hold("K3", label, ops.radic_det_batched_grad_cuda(As, cts),
+                  radic_batched_grad_partial_plain(As, cts, table, 0, total,
+                                                   dtype=torch.float64))
+        shapes.append((B, m, n))
+    counts = launch_counts()
+    check(counts["radic_batched_partial_cuda"] >= len(library)
+          and counts["radic_batched_grad_partial_cuda"] >= len(library),
+          f"K1 or K3 did not launch at the retrieval's shapes: {counts}")
+    return sorted(set(shapes))
+
+
 def phase_times(gen: torch.Generator, serve: dict, k2_big,
                 grad_A: torch.Tensor, mesh: dict) -> dict:
     from repro_torch.core import plan_grains, radic_det
@@ -2172,7 +2610,8 @@ def phase_times(gen: torch.Generator, serve: dict, k2_big,
         """``ms`` (and ``library_ms``) is the device time of one call,
         from the profiler; the call's wall time, host included, is
         printed beside it.  ``plain`` is the plain version's wall time."""
-        ms, wall = device_ms(call), cuda_ms(call)
+        ms = device_ms(call, kernel=kernel_name(kernel, shape[1]))
+        wall = cuda_ms(call)
         lib_ms = device_ms(library) if library is not None else None
         times[kernel] = {"ms": ms, "plain_ms": plain, "bound_ms": bound[0],
                          "bound_by": bound[1], "library_ms": lib_ms,
@@ -2412,6 +2851,11 @@ def main() -> int:
     done("14 the mesh")
     times = phase_times(gen, serve, k2["big"], autograd["A"], mesh)
     done("9 times")
+    phase_lm_serve()
+    done("15 LM serving")
+    phase_examples(errs, gen)
+    done("16 the examples")
+    profiler_probe(autograd["A"])
     csrc = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     rows = []

@@ -48,6 +48,9 @@ def test_port_runs_with_jax_unimportable():
         "import repro_torch.launch.det_serve, repro_torch.runtime\n"
         "import repro_torch.launch.det_front, repro_torch.launch.autoscale\n"
         "import repro_torch.checkpoint, repro_torch.core.distributed\n"
+        "import repro_torch.models, repro_torch.configs\n"
+        "import repro_torch.parallel.sharding, repro_torch.launch.serve\n"
+        "import repro_torch.models.convert, repro_torch.launch.steps\n"
         "from repro_torch.core import radic_det_batched, radic_det_oracle\n"
         "As = np.random.default_rng(0).normal(size=(3, 3, 7))"
         ".astype(np.float32)\n"
@@ -59,6 +62,11 @@ def test_port_runs_with_jax_unimportable():
         "mesh = build_mesh(choose_mesh(4, max_model=2), ['cpu'] * 4)\n"
         "got = radic_det_distributed(As[0], mesh=mesh, mode='flat')\n"
         "assert abs(float(got) - want[0]) <= 2e-3 * max(1, abs(want[0]))\n"
+        "from repro_torch.launch import serve\n"
+        "gen = serve.main(['--arch', 'gemma2-9b', '--smoke', '--device',\n"
+        "                  'cpu', '--batch', '1', '--prompt-len', '4',\n"
+        "                  '--gen', '2'])\n"
+        "assert gen.shape == (1, 2)\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
         "print('PORT_OK')\n")

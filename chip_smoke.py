@@ -176,6 +176,30 @@ per source, all at once) and runs these phases, each printing its lines:
    window stack, the (7..17, 4, 6) shapes the retrieval launches them
    at, against float64 plain, with the counts set to 0 and read around
    that check too.
+17. LM families (after the profiler probe; CUDA events only, no
+   profiler window): mamba2-1.3b (ssm, 48 layers, a 300-token prompt:
+   SSD across chunks of 256 with a ragged last one), hymba-1.5b (hybrid,
+   32 layers, 1,100 tokens: past the 1,024 window), whisper-medium (audio,
+   24 + 24 layers, 1,500 stand-in frames, 16 tokens forced), grok-1-314b
+   (moe, scatter, 8 experts, 2 layers) and arctic-480b (moe, scatter, 128
+   experts and the dense residual, 1 layer), each at its published width
+   in bf16 (random weights from a seed; grok-1 and arctic cut in depth
+   only) with its parameter count held, served through
+   ``repro_torch.launch.serve.run`` (B = 4, 32 greedy steps): prefill
+   ms, decode ms per step, tok/s, a step back to back, the decode bound
+   (every layer and head weight read once at 3.35 TB/s; for moe also at
+   the experts this run's steps route to); then the same model made its
+   own float32 copy tensor by tensor: its prefill + decode logits equal
+   its forward's within 2e-3 (moe at ``capacity_factor = n_experts /
+   top_k``, C = Tg: no drops), and the bf16 served logits within 5e-2
+   relative Frobenius of the float32 teacher-forced logits (moe at the
+   published capacity on the served run's expert choices; beside it the
+   error on the copy's own choices, the share of (token, layer) choices
+   bf16 and float32 make alike, and each differing choice held to a
+   float32 tie within the router logits' difference between the runs);
+   grok-1's scatter path bit for bit the same in two calls and its
+   ``onehot`` dispatch within 1e-4 of ``scatter`` at no drops;
+   whisper's EOS leg ending slot 0; the phase's wall.
 
 Every check holds ``|got - want| <= 2e-3 * max(1, |want|)`` (the
 reference's tolerance against its oracles), ``want`` from the plain
@@ -355,12 +379,13 @@ def device_ms(fn, reps: int = 10, windows: int = 3,
     None): one that lost it would read the rest of the call (a fill's
     0.02 ms for K1's 1 ms) as the kernel's time.  Of those, only the
     windows that saw the most event names count, so a lost reduction does
-    not read low either.  It fails when fewer than ``windows`` of
-    ``windows + 5`` windows recorded the kernel."""
+    not read low either.  It takes windows until ``windows`` of them
+    recorded the kernel, and fails when ``8 * windows`` did not (K3 wide
+    recorded in 2 of 8 windows once, so 8 were too few to draw from)."""
     fn()
     torch.cuda.synchronize()
     per_call, kept, names, lost = [], [], [], 0
-    for _ in range(windows + 5):
+    for _ in range(8 * windows):
         by_name = profile_window(fn, reps)
         if not holds(by_name, kernel):
             lost += 1
@@ -2263,11 +2288,21 @@ def free_card() -> None:
 
 
 def teacher_forced(model, prompts: torch.Tensor, gen: torch.Tensor,
-                   max_len: int) -> torch.Tensor:
+                   max_len: int, frames: torch.Tensor | None = None
+                   ) -> torch.Tensor:
     """Prefill the prompts, then decode ``gen``'s tokens one a step: the
-    (B, 1 + G, V) float32 logits of the prefill and of each step."""
+    (B, 1 + G, V) float32 logits of the prefill and of each step.  With
+    ``frames`` (the encoder-decoder) the prefill is the serve driver's:
+    the warm cross cache, then the prompt forced through decode."""
     with torch.inference_mode():
-        logits, cache = model.prefill(prompts, max_len)
+        if frames is None:
+            logits, cache = model.prefill(prompts, max_len)
+        else:
+            cache = model.warm_cross_cache(
+                model.init_cache(prompts.shape[0], max_len), frames)
+            for t in range(prompts.shape[1]):
+                logits, cache = model.decode_step(cache,
+                                                  prompts[:, t:t + 1])
         out = [logits]
         for t in range(gen.shape[1]):
             logits, cache = model.decode_step(cache, gen[:, t:t + 1])
@@ -2467,6 +2502,314 @@ def phase_gemma_window() -> None:
         check(e <= 2e-3, f"gemma2 decode vs forward {e:.3e} > 2e-3")
     del model, full
     free_card()
+
+
+# ---------------------------------------------------------- LM families
+# (arch, layers kept: None for all, params of what runs (the reference's
+# eval_shape, all leaves), prompt tokens): grok-1 (about 633 GB in bf16)
+# and arctic (about 957 GB) are cut in depth only
+LM_FAMILIES = (
+    ("mamba2-1.3b", None, 1_343_740_928, 300),
+    ("hymba-1.5b", None, 1_640_872_384, 1100),
+    ("whisper-medium", None, 1_012_314_112, 16),
+    ("grok-1-314b", 2, 11_450_578_944, 16),
+    ("arctic-480b", 1, 14_119_490_560, 16),
+)
+FAMILY_BATCH, FAMILY_GEN = 4, 32
+
+
+class RouterLog:
+    """Wraps ``repro_torch.models.moe._router`` (which ``moe_forward``
+    looks up at each call).  ``record(fn)`` runs ``fn`` and keeps each
+    router call's expert ids and float32 router logits, on the CPU, in
+    call order (a call a layer a prefill or step); ``forced(fn, calls)``
+    runs ``fn`` with each call's expert ids replaced by a recorded run's,
+    the gates renormalized from this run's own probabilities."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe._router
+        self.calls, self.replay = None, None
+
+        def wrapped(p, xf, cfg):
+            gates, idx, aux = self.orig(p, xf, cfg)
+            logits = xf.float() @ p["router"].float()
+            if self.replay is not None:
+                idx = next(self.replay).to(idx.device).reshape(idx.shape)
+                probs = torch.softmax(logits, dim=-1)
+                gates = torch.gather(probs, -1, idx)
+                gates = gates / torch.sum(gates, dim=-1, keepdim=True)
+            if self.calls is not None:
+                self.calls.append((idx.reshape(-1, idx.shape[-1]).cpu(),
+                                   logits.reshape(-1, logits.shape[-1])
+                                   .cpu()))
+            return gates, idx, aux
+        moe._router = wrapped
+
+    def record(self, fn):
+        self.calls = []
+        try:
+            return fn(), self.calls
+        finally:
+            self.calls = None
+
+    def forced(self, fn, calls):
+        self.replay = iter([idx for idx, _ in calls])
+        try:
+            return fn()
+        finally:
+            self.replay = None
+
+    def close(self) -> None:
+        self.moe._router = self.orig
+
+
+def route_flips(bf_calls, f32_calls) -> dict:
+    """bf16 against float32 routing, (token, layer) choice by choice: the
+    share with the same top-k set; the largest router-logit difference
+    between the runs (eps, and as a share of the largest logit); and
+    whether each differing choice sits within 2 eps of a tie in the
+    float32 logits, as a top-k of logits perturbed by at most eps must
+    (a choice off by more is no rounding)."""
+    same, explained, eps_max, rel_max = [], True, 0.0, 0.0
+    for (ib, lb), (i32, l32) in zip(bf_calls, f32_calls):
+        eps = (lb - l32).abs().max().item()
+        eps_max = max(eps_max, eps)
+        rel_max = max(rel_max, eps / l32.abs().max().item())
+        agree = (torch.sort(ib, -1).values
+                 == torch.sort(i32, -1).values).all(-1)
+        same.append(agree)
+        kth = torch.gather(l32, -1, i32).min(-1).values
+        for t in torch.nonzero(~agree).flatten().tolist():
+            extra = [e for e in ib[t].tolist() if e not in i32[t].tolist()]
+            gap = (kth[t] - l32[t, extra].max()).item()
+            explained &= gap <= 2 * eps
+    same = torch.cat(same)
+    return {"router_agree": same.float().mean().item(),
+            "router_flips": int((~same).sum()), "router_eps": eps_max,
+            "router_eps_rel": rel_max, "flips_within_eps": explained}
+
+
+def to_float32(model) -> None:
+    """Make ``model`` its own float32 copy, tensor by tensor: each bf16
+    param's float32 twin is made, then the bf16 one freed, so the two
+    whole copies never coexist (arctic's float32 layer alone is 56.5
+    GB)."""
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dtype != torch.float32:
+                p.data = p.data.float()
+                if p.numel() >= 1 << 26:
+                    torch.cuda.empty_cache()
+    model.cfg = model.cfg.replace(param_dtype="float32", dtype="float32")
+
+
+def decode_weight_bytes(model, active: float | None = None) -> int:
+    """The weight bytes a decode step reads at least once: every layer
+    (the decoder's, for the encoder-decoder) and the head; with
+    ``active``, the expert stacks counted at that many experts a layer."""
+    cfg = model.cfg
+    layers = model.dec_layers if cfg.family == "audio" else model.layers
+    total = 0
+    for name, p in layers.named_parameters():
+        n = p.numel()
+        if active is not None and name.split(".")[1:] in (
+                ["moe", "w_gate"], ["moe", "w_up"], ["moe", "w_down"]):
+            n = n * active / cfg.n_experts
+        total += n * p.element_size()
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    return int(total + head.numel() * head.element_size())
+
+
+def serve_family(arch: str, layers, want_params: int, prompt: int) -> dict:
+    """One arch of phase 17: serve it in bf16 through
+    ``repro_torch.launch.serve.run``, then hold it against its own float32
+    copy (made in place, tensor by tensor)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    B, P, G = FAMILY_BATCH, prompt, FAMILY_GEN
+    argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
+            "--gen", str(G)] + ([] if layers is None
+                                else ["--layers", str(layers)])
+    torch.cuda.reset_peak_memory_stats()
+    t_arch = time.perf_counter()
+    out = serve.run(argv)
+    model = out["model"]
+    cfg = model.cfg
+    full = get_config(arch)
+    moe = cfg.family == "moe"
+    audio = cfg.family == "audio"
+    n_params = sum(p.numel() for p in model.parameters())
+    check(cfg == full.replace(n_layers=cfg.n_layers)
+          and cfg.n_layers == (layers or full.n_layers)
+          and model.embed.dtype == cfg.adtype == torch.bfloat16,
+          f"{arch} is not at full width in bf16: {cfg}")
+    check(n_params == want_params,
+          f"{arch}: {n_params} params, not {want_params}")
+    served = torch.stack(out["logits"], 1)                  # (B, 1 + G, V)
+    gen = torch.as_tensor(out["tokens"], device="cuda").int()
+    prompts = torch.as_tensor(out["prompts"], device="cuda")
+    frames = out["frame_embeds"]
+    check(bool(torch.isfinite(served).all()), f"{arch}: logits not finite")
+    check(tuple(gen.shape) == (B, G)
+          and bool((gen.long() == served[:, :G].argmax(-1)).all()),
+          f"{arch}: served tokens are not the argmax of the served logits")
+    seq = torch.cat([prompts, gen.long()], 1)               # (B, P + G)
+    fwd_args = (frames,) if audio else ()
+    res = {"arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+           "params": n_params, "prefill_ms": out["prefill_ms"],
+           "decode_ms": out["decode_ms"], "tok_s": out["tok_s"]}
+    cut = "" if layers is None else \
+        f", cut to {layers} of {full.n_layers} layers at full width"
+    res["bound_ms"] = decode_weight_bytes(model) / PEAK_BYTES * 1e3
+
+    # a decode step back to back (no host sync a step), CUDA events
+    with torch.inference_mode():
+        if audio:
+            cache = model.warm_cross_cache(model.init_cache(B, P + G), frames)
+        else:
+            _, cache = model.prefill(prompts, P + G)
+        tok = gen[:, :1]
+        res["step_ms"] = cuda_ms(lambda: model.decode_step(cache, tok),
+                                 min_reps=5)
+        del cache
+    log = RouterLog() if moe else None
+    try:
+        if moe:
+            bf_tf, bf_routes = log.record(
+                lambda: teacher_forced(model, prompts, gen, P + G))
+            steps = bf_routes[cfg.n_layers:]                # decode steps
+            active = sum(len(torch.unique(idx)) for idx, _ in steps) / \
+                len(steps)
+            res["active_experts"] = active
+            res["active_bound_ms"] = decode_weight_bytes(
+                model, active) / PEAK_BYTES * 1e3
+            with torch.inference_mode():
+                once = model.forward(seq)[0]
+                twice = model.forward(seq)[0]
+            res["scatter_bitwise"] = torch.equal(once, twice)
+            check(cfg.moe_impl == "scatter" and res["scatter_bitwise"],
+                  f"{arch}: two calls of the scatter path differ")
+            del once, twice
+        else:
+            bf_tf = teacher_forced(model, prompts, gen, P + G, frames)
+        res["tf_equals_served"] = torch.equal(bf_tf, served)
+        print(f"LM family {cfg.family} {arch} bf16 (B={B}, prompt {P}, gen "
+              f"{G}{cut}): {n_params} params; prefill "
+              f"{out['prefill_ms']:.3f} ms"
+              + (" (warm cross cache + forced prompt)" if audio else "")
+              + f", decode {out['decode_ms']:.3f} ms/step, "
+              f"{out['tok_s']:.1f} tok/s; a step back to back "
+              f"{res['step_ms']:.3f} ms; decode bound {res['bound_ms']:.3f}"
+              f" ms (every layer and head weight at "
+              f"{PEAK_BYTES / 1e12:.2f} TB/s)"
+              + (f", {res['active_bound_ms']:.3f} ms at the "
+                 f"{res['active_experts']:.2f} experts a layer this run's "
+                 f"steps route to" if moe else "")
+              + f"; teacher-forced == served bit for bit: "
+              f"{res['tf_equals_served']}", flush=True)
+
+        # the float32 copy of the same weights (bf16 -> float32 is exact)
+        to_float32(model)
+        cfg32 = model.cfg
+        if moe:
+            f32_tf, f32_routes = log.record(
+                lambda: teacher_forced(model, prompts, gen, P + G))
+            check(len(bf_routes) == len(f32_routes), "router call counts")
+            res.update(route_flips(bf_routes, f32_routes))
+            # the float32 copy on the served run's expert choices: bf16's
+            # arithmetic apart from its routing flips
+            forced = log.forced(
+                lambda: teacher_forced(model, prompts, gen, P + G),
+                bf_routes)
+            res["rel_fro_own_routes"] = rel_fro(served, f32_tf)
+            res["rel_fro"] = rel_fro(served, forced)
+            del forced
+        else:
+            f32_tf = teacher_forced(model, prompts, gen, P + G, frames)
+            res["rel_fro"] = rel_fro(served, f32_tf)
+        # decode == forward; moe at C = Tg (no drops: the forward routes
+        # B·S tokens a group, a decode step B)
+        nodrop = with_cfg(model, cfg32.replace(
+            capacity_factor=cfg.n_experts / cfg.top_k)) if moe else model
+        with torch.inference_mode():
+            full32 = nodrop.forward(seq, *fwd_args)[0][:, P - 1:]
+        dec32 = f32_tf if not moe else teacher_forced(nodrop, prompts, gen,
+                                                      P + G)
+        res["decode_err"] = decode_err(dec32, full32)
+        if moe and arch.startswith("grok"):
+            with torch.inference_mode():
+                onehot = with_cfg(model, nodrop.cfg.replace(
+                    moe_impl="onehot")).forward(seq)[0][:, P - 1:]
+            res["onehot_vs_scatter"] = rel_err(onehot, full32)
+            del onehot
+    finally:
+        if log is not None:
+            log.close()
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"LM family {arch} float32 copy: prefill + {G} decode steps vs "
+          f"forward max |d|/(1+|f|) = {res['decode_err']:.3e} (tol 2e-3"
+          + (", capacity_factor = n_experts / top_k: no drops" if moe
+             else "") + "); bf16 served vs float32 teacher-forced "
+          + (f"(published capacity) on its own routes "
+             f"{res['rel_fro_own_routes']:.4e} relative Frobenius, on the"
+             f" served run's routes {res['rel_fro']:.4e} (tol 5e-2); "
+             f"bf16 and float32 route {res['router_agree']:.2%} of "
+             f"(token, layer) choices alike ({res['router_flips']} "
+             f"differ, each within 2 eps of a float32 tie: "
+             f"{res['flips_within_eps']}; router logits differ by up to "
+             f"eps {res['router_eps']:.3e}, {res['router_eps_rel']:.2e} "
+             f"of the largest)" if moe else
+             f"relative Frobenius {res['rel_fro']:.4e} (tol 5e-2)")
+          + (f"; onehot vs scatter at no drops rel_err "
+             f"{res['onehot_vs_scatter']:.3e} (tol 1e-4)"
+             if "onehot_vs_scatter" in res else "")
+          + f"; peak memory {res['peak_gb']:.2f} GB", flush=True)
+    check(res["decode_err"] <= 2e-3,
+          f"{arch}: float32 decode vs forward {res['decode_err']:.3e} > 2e-3")
+    check(res["rel_fro"] <= 5e-2,
+          f"{arch}: bf16 served logits vs float32 {res['rel_fro']:.4e} > "
+          "5e-2")
+    if moe:
+        check(res["flips_within_eps"], f"{arch}: a routing choice differs "
+              "by more than the router logits' bf16 perturbation")
+    if "onehot_vs_scatter" in res:
+        check(res["onehot_vs_scatter"] <= 1e-4,
+              f"{arch}: onehot vs scatter {res['onehot_vs_scatter']:.3e}")
+    first = out["tokens"]
+    del out, model, nodrop, served, bf_tf, f32_tf, full32, dec32
+    free_card()
+    if audio:
+        # the EOS leg: the token slot 0 emits at step 1 ends slot 0 there
+        eos = int(first[0, 1])
+        leg = serve.run(argv + ["--eos", str(eos)])
+        got = leg["tokens"]
+        print(f"LM family {arch} EOS leg (--eos {eos}): live={leg['live']}/"
+              f"{B}, {leg['n_live_tokens']} live tokens of {B * G}",
+              flush=True)
+        check(leg["live"] < B and leg["n_live_tokens"] < B * G,
+              f"{arch}: the EOS leg's live count did not drop")
+        check(np.array_equal(got[0, :2], first[0, :2])
+              and bool((got[0, 1:] == eos).all()),
+              f"{arch}: slot 0 does not end at its EOS")
+        del leg
+        free_card()
+    res["wall_s"] = time.perf_counter() - t_arch
+    return res
+
+
+def phase_lm_families() -> list:
+    """Phase 17: the moe, ssm, hybrid and audio families served at their
+    published widths in bf16 (grok-1 and arctic cut in depth), each held
+    against its float32 copy.  Timed by CUDA events; opens no profiler
+    window."""
+    print(card_line(), flush=True)
+    t0 = time.perf_counter()
+    results = [serve_family(*row) for row in LM_FAMILIES]
+    print(f"LM families: {json.dumps(results)}", flush=True)
+    print(f"LM families: phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return results
 
 
 # ------------------------------------------------------------ the examples
@@ -2856,6 +3199,8 @@ def main() -> int:
     phase_examples(errs, gen)
     done("16 the examples")
     profiler_probe(autograd["A"])
+    phase_lm_families()
+    done("17 LM families")
     csrc = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     rows = []

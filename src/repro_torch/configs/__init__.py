@@ -1,5 +1,6 @@
-"""The --arch registry and the zoo's configs.  Port of ``repro/configs``;
-``shapes.py`` (the dry-run's abstract shapes) is not ported yet."""
+"""The --arch registry, the zoo's configs and the paper's own workload
+(``radic_paper``).  Port of ``repro/configs``; ``shapes.py`` (the
+dry-run's abstract shapes) is not ported yet."""
 
 from .registry import ARCHS, OPTIMIZED_OVERRIDES, get_config, list_archs
 

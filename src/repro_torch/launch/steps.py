@@ -16,9 +16,10 @@ def make_prefill_step(model, max_len: int) -> Callable:
 
     def prefill_step(batch):
         if cfg.family == "audio":
-            raise NotImplementedError(
-                "the encoder-decoder's prefill is not ported yet (ROADMAP "
-                "queue 1 item 10)")
+            # enc-dec "prefill" = teacher-forced decoder pass over the
+            # prompt + encoder memory (cache build happens in decode)
+            logits, _ = model.forward(batch["tokens"], batch["frame_embeds"])
+            return logits[:, -1]
         return model.prefill(batch["tokens"], max_len=max_len,
                              prefix_embeds=batch.get("prefix_embeds"))
     return prefill_step

@@ -24,23 +24,26 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import dense_init, rope
+from .layers import Leaf, materialize, rope
 
-__all__ = ["init_attn", "attn_forward", "attn_decode", "init_kv_cache"]
+__all__ = ["init_attn", "attn_spec", "attn_forward", "attn_decode",
+           "init_kv_cache"]
 
 NEG_INF = -2.0 ** 30  # large-but-finite; avoids NaN rows on fully-masked
 PAD_POS = -(10 ** 9)  # position of the chunked path's padding keys
 
 
+def attn_spec(cfg: ModelConfig) -> dict:
+    d, pd = cfg.d_model, cfg.pdtype
+    return {"wq": Leaf((d, cfg.qdim), pd, 0),
+            "wk": Leaf((d, cfg.kvdim), pd, 0),
+            "wv": Leaf((d, cfg.kvdim), pd, 0),
+            "wo": Leaf((cfg.qdim, d), pd, 0)}
+
+
 def init_attn(generator: torch.Generator, cfg: ModelConfig,
               cross: bool = False) -> dict:
-    d = cfg.d_model
-    return {
-        "wq": dense_init(generator, (d, cfg.qdim), 0, cfg.pdtype),
-        "wk": dense_init(generator, (d, cfg.kvdim), 0, cfg.pdtype),
-        "wv": dense_init(generator, (d, cfg.kvdim), 0, cfg.pdtype),
-        "wo": dense_init(generator, (cfg.qdim, d), 0, cfg.pdtype),
-    }
+    return materialize(attn_spec(cfg), generator)
 
 
 def _split_heads(x, n_heads, head_dim):

@@ -3,15 +3,24 @@
 Port of ``repro/models/layers.py``.  The same math in eager torch: the
 norm and the rotary embedding run in float32 and round to the input's
 dtype once, GELU is the tanh approximation, and ``x @ w`` keeps the
-reference's ``(in, out)`` weight orientation."""
+reference's ``(in, out)`` weight orientation.
+
+Added for the port: :class:`Leaf` states a param's shape, dtype and
+initializer, :func:`draw` fills a tensor by it, and :class:`ParamTree`
+holds a nested spec of leaves as module params, so each model module
+writes its layout once (its ``*_spec``) and the reference's ``init_*``
+functions and the models' ``init`` draw from it."""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
+from torch import nn
 
-__all__ = ["rmsnorm", "rope", "glu_mlp", "init_glu_mlp", "dense_init",
-           "ACTS"]
+__all__ = ["rmsnorm", "rope", "glu_mlp", "init_glu_mlp", "glu_spec",
+           "dense_init", "ACTS", "Leaf", "draw", "materialize", "ParamTree"]
 
 ACTS = {
     "silu": F.silu,
@@ -31,6 +40,79 @@ def dense_init(generator: torch.Generator, shape, in_axis: int,
                     device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (w * std).to(dtype)
+
+
+class Leaf(NamedTuple):
+    """One param: ``in_axis`` set draws :func:`dense_init` with that
+    fan-in axis; otherwise every element is ``fill``."""
+    shape: tuple
+    dtype: torch.dtype
+    in_axis: int | None = None
+    fill: float = 0.0
+
+
+@torch.no_grad()
+def draw(leaf: Leaf, generator: torch.Generator,
+         out: torch.Tensor | None = None) -> torch.Tensor:
+    """Fill ``out`` (a new tensor on ``generator``'s device if None) by
+    ``leaf``'s initializer.  A stack of experts (ndim 3, fan-in axis 1)
+    is drawn one expert at a time, so the float32 draw never holds more
+    than one expert's matrix (arctic's stack is 4.5G elements)."""
+    if out is None:
+        out = torch.empty(leaf.shape, dtype=leaf.dtype,
+                          device=generator.device)
+    if leaf.in_axis is None:
+        return out.fill_(leaf.fill)
+    if len(leaf.shape) == 3 and leaf.in_axis == 1:
+        for e in range(leaf.shape[0]):
+            out[e].copy_(dense_init(generator, leaf.shape[1:], 0,
+                                    leaf.dtype))
+        return out
+    return out.copy_(dense_init(generator, leaf.shape, leaf.in_axis,
+                                leaf.dtype))
+
+
+def materialize(spec: dict, generator: torch.Generator) -> dict:
+    """A nested spec of leaves as a nested dict of drawn tensors, in the
+    spec's order."""
+    return {k: materialize(v, generator) if isinstance(v, dict)
+            else draw(v, generator) for k, v in spec.items()}
+
+
+class ParamTree(nn.Module):
+    """A nested spec of :class:`Leaf` held as module params: a
+    (non-trainable) parameter per leaf and a child tree per dict, each
+    reachable as ``tree[name]``.  Allocated uninitialized on ``device``
+    (``"meta"`` allocates nothing)."""
+
+    def __init__(self, spec: dict, device):
+        super().__init__()
+        self._spec = spec
+        for name, leaf in spec.items():
+            if isinstance(leaf, dict):
+                setattr(self, name, ParamTree(leaf, device))
+            else:
+                setattr(self, name, nn.Parameter(
+                    torch.empty(leaf.shape, dtype=leaf.dtype, device=device),
+                    requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def tree(self) -> dict:
+        """The params as the reference's (per-layer) nested dict."""
+        return {name: self[name].tree() if isinstance(leaf, dict)
+                else self[name] for name, leaf in self._spec.items()}
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "ParamTree":
+        """Draw every leaf in the spec's order."""
+        for name, leaf in self._spec.items():
+            if isinstance(leaf, dict):
+                self[name].init(generator)
+            else:
+                draw(leaf, generator, out=self[name])
+        return self
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -56,13 +138,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def glu_spec(d_model: int, d_ff: int, dtype: torch.dtype) -> dict:
+    return {"w_gate": Leaf((d_model, d_ff), dtype, 0),
+            "w_up": Leaf((d_model, d_ff), dtype, 0),
+            "w_down": Leaf((d_ff, d_model), dtype, 0)}
+
+
 def init_glu_mlp(generator: torch.Generator, d_model: int, d_ff: int,
                  dtype: torch.dtype) -> dict:
-    return {
-        "w_gate": dense_init(generator, (d_model, d_ff), 0, dtype),
-        "w_up": dense_init(generator, (d_model, d_ff), 0, dtype),
-        "w_down": dense_init(generator, (d_ff, d_model), 0, dtype),
-    }
+    return materialize(glu_spec(d_model, d_ff, dtype), generator)
 
 
 def glu_mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:

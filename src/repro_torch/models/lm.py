@@ -1,13 +1,15 @@
-"""Causal LM of the zoo's attention families (dense, vlm) as a torch
-module.
+"""Causal LM over the zoo's decoder families (dense, vlm, moe, ssm,
+hybrid) as a torch module.
 
 Port of ``repro/models/lm.py``'s :class:`CausalLM`.  The reference keeps
 its params in a pytree with a stacked leading layer dim and scans over
 it; here the params are the module's own: ``embed``, ``final_norm``,
-``lm_head`` (untied configs) and an ``nn.ModuleList`` of layers, each
-holding ``norm1``/``norm2`` (``norm1_post``/``norm2_post`` with
-``post_block_norm``) and the ``attn`` and ``mlp`` weight dicts.  Weights
-keep the reference's ``(in, out)`` orientation (``x @ w``), so
+``lm_head`` (untied configs) and an ``nn.ModuleList`` of layers, each a
+:class:`~repro_torch.models.layers.ParamTree` of the reference's
+per-layer dict for the family (``norm1``/``norm2`` and ``attn`` with
+``mlp`` or ``moe`` (``moe.dense`` for arctic); ``norm1`` and ``ssm``;
+``mix.attn``, ``mix.ssm``, ``mix.gate`` and ``mlp`` for hybrid).
+Weights keep the reference's ``(in, out)`` orientation (``x @ w``), so
 :mod:`repro_torch.models.convert` carries a reference tree across by
 copies alone.  Methods have the reference's signatures without
 ``params``: ``init(generator)``, ``forward(tokens, prefix_embeds)``,
@@ -15,15 +17,16 @@ copies alone.  Methods have the reference's signatures without
 tokens)``, ``init_cache(batch, max_len)``.
 
 Numerics follow the reference: every call first casts the float32
-weights of ndim ≥ 2 to the activation dtype (the norms stay float32),
-the head's float32 logits come from :func:`f32_product`, and
+weights of ndim ≥ 2 to the activation dtype (the MoE router among them;
+the norms, the SSM's vectors and the hybrid gate, of ndim 1, stay
+float32), the head's float32 logits come from :func:`f32_product`, and
 Gemma2's embedding scale is ``sqrt(d_model)`` rounded to the activation
-dtype.  The cache is the reference's: roped k and unroped v in the
-activation dtype, ``(L, B, max_len, KVH, D)``, and one scalar ``pos``.
-
-``moe``, ``ssm`` and ``hybrid`` configs raise ``NotImplementedError``:
-their modules are not ported yet.  The training loss waits for the
-training slice.
+dtype.
+The cache is the reference's: roped k and unroped v in the activation
+dtype, ``(L, B, max_len, KVH, D)``; the SSM's conv tail ``(L, B, K-1,
+conv_dim)`` and state ``(L, B, H, P, N)``; one scalar ``pos``.
+``forward`` returns the MoE aux loss summed over layers.  The training
+loss waits for the training slice.
 """
 
 from __future__ import annotations
@@ -37,20 +40,17 @@ from torch import nn
 
 from repro_torch.core.radic import resolve_device
 
-from .attention import attn_decode, attn_forward, init_attn, init_kv_cache
+from .attention import (attn_decode, attn_forward, attn_spec,
+                        init_kv_cache)
 from .config import ModelConfig
-from .layers import dense_init, glu_mlp, init_glu_mlp, rmsnorm, rope
+from .hybrid import _mix, hybrid_decode, hybrid_forward, hybrid_spec
+from .layers import Leaf, ParamTree, draw, glu_mlp, glu_spec, rmsnorm, rope
+from .moe import moe_forward, moe_spec
+from .ssm import init_ssm_cache, ssm_decode, ssm_forward, ssm_spec
 
-__all__ = ["CausalLM", "PORTED_FAMILIES"]
+__all__ = ["CausalLM", "PORTED_FAMILIES", "f32_product"]
 
-PORTED_FAMILIES = ("dense", "vlm")
-_NOT_YET = ("{family} is not ported yet: its serving path is ROADMAP "
-            "queue 1 item 10 (moe, ssm, hybrid, encdec serving)")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(_NOT_YET.format(family=cfg.family))
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def _tree_map(fn, tree):
@@ -61,43 +61,70 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _weights(names_shapes: dict, dtype, device) -> nn.ParameterDict:
-    return nn.ParameterDict({
-        k: nn.Parameter(torch.empty(s, dtype=dtype, device=device),
-                        requires_grad=False)
-        for k, s in names_shapes.items()})
+def cast_tree(tree, adtype: torch.dtype):
+    """The reference's ``_cast``: float32 leaves of ndim ≥ 2 to the
+    activation dtype, the rest as they are."""
+    def c(w):
+        return w.to(adtype) if (w.dtype == torch.float32 and w.ndim >= 2
+                                ) else w
+    return _tree_map(c, tree)
 
 
-def _norm(d: int, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros((d,), dtype=torch.float32,
-                                    device=device), requires_grad=False)
+def _norm_leaf(d: int) -> Leaf:
+    return Leaf((d,), torch.float32)
 
 
-class _Layer(nn.Module):
-    """One block's params: norms, ``attn`` and ``mlp``."""
-
-    def __init__(self, cfg: ModelConfig, device):
-        super().__init__()
-        d, pd = cfg.d_model, cfg.pdtype
-        self.norm1 = _norm(d, device)
-        self.norm2 = _norm(d, device)
+def layer_spec(cfg: ModelConfig) -> dict:
+    """One layer's params for the family, as the reference's
+    ``_init_layer`` lays them out (and draws them, in this order)."""
+    fam, d, pd = cfg.family, cfg.d_model, cfg.pdtype
+    p: dict[str, Any] = {}
+    if fam in ("dense", "vlm", "moe", "hybrid"):
+        p["norm1"] = _norm_leaf(d)
+        p["norm2"] = _norm_leaf(d)
         if cfg.post_block_norm:
-            self.norm1_post = _norm(d, device)
-            self.norm2_post = _norm(d, device)
-        self.attn = _weights({"wq": (d, cfg.qdim), "wk": (d, cfg.kvdim),
-                              "wv": (d, cfg.kvdim), "wo": (cfg.qdim, d)},
-                             pd, device)
-        self.mlp = _weights({"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
-                             "w_down": (cfg.d_ff, d)}, pd, device)
+            p["norm1_post"] = _norm_leaf(d)
+            p["norm2_post"] = _norm_leaf(d)
+    if fam in ("dense", "vlm"):
+        p["attn"] = attn_spec(cfg)
+        p["mlp"] = glu_spec(d, cfg.d_ff, pd)
+    elif fam == "moe":
+        p["attn"] = attn_spec(cfg)
+        p["moe"] = moe_spec(cfg)
+    elif fam == "ssm":
+        p["norm1"] = _norm_leaf(d)
+        p["ssm"] = ssm_spec(cfg)
+    elif fam == "hybrid":
+        p["mix"] = hybrid_spec(cfg)
+        p["mlp"] = glu_spec(d, cfg.d_ff, pd)
+    else:
+        raise ValueError(f"{fam} is not a CausalLM family (audio is "
+                         "EncDecLM's)")
+    return p
 
-    def tree(self) -> dict:
-        """This layer's params as the reference's per-layer dict."""
-        out: dict[str, Any] = {}
-        for name, p in self.named_parameters(recurse=False):
-            out[name] = p
-        out["attn"] = dict(self.attn.items())
-        out["mlp"] = dict(self.mlp.items())
-        return out
+
+def attn_axes() -> dict:
+    return {"wq": ("layers", "embed", "qdim"),
+            "wk": ("layers", "embed", "kvdim"),
+            "wv": ("layers", "embed", "kvdim"),
+            "wo": ("layers", "qdim", "embed")}
+
+
+def mlp_axes() -> dict:
+    return {"w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed")}
+
+
+def _ssm_axes() -> dict:
+    return {"in_proj": ("layers", "embed", "inner"),
+            "conv_w": ("layers", "conv", None),
+            "conv_b": ("layers", None),
+            "A_log": ("layers", None),
+            "D": ("layers", None),
+            "dt_bias": ("layers", None),
+            "norm_w": ("layers", "inner"),
+            "out_proj": ("layers", "inner", "embed")}
 
 
 def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -114,27 +141,35 @@ def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
+def model_device(device) -> torch.device:
+    """``"meta"`` as it is (shapes without memory), else the card unless
+    the caller asks for another device."""
+    return torch.device(device) if str(device) == "meta" \
+        else resolve_device(device)
+
+
 class CausalLM(nn.Module):
-    """The zoo's causal LM for ``dense`` and ``vlm`` configs, with its
-    params allocated (uninitialized) on ``device`` (default ``"cuda"``:
-    ``RuntimeError`` without a card; ``"meta"`` allocates nothing).  Fill
-    them with :meth:`init` or :func:`repro_torch.models.convert.
-    params_from_reference`."""
+    """The zoo's causal LM for ``dense``, ``vlm``, ``moe``, ``ssm`` and
+    ``hybrid`` configs, with its params allocated (uninitialized) on
+    ``device`` (default ``"cuda"``: ``RuntimeError`` without a card;
+    ``"meta"`` allocates nothing).  Fill them with :meth:`init` or
+    :func:`repro_torch.models.convert.params_from_reference`."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
         super().__init__()
         cfg.validate()
-        _check_family(cfg)
+        spec = layer_spec(cfg)
         self.cfg = cfg
-        dev = torch.device(device) if str(device) == "meta" \
-            else resolve_device(device)
+        dev = model_device(device)
         d, pd = cfg.d_model, cfg.pdtype
         self.embed = nn.Parameter(
             torch.empty((cfg.vocab_size, d), dtype=pd, device=dev),
             requires_grad=False)
-        self.layers = nn.ModuleList(_Layer(cfg, dev)
+        self.layers = nn.ModuleList(ParamTree(spec, dev)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = _norm(d, dev)
+        self.final_norm = nn.Parameter(
+            torch.zeros((d,), dtype=torch.float32, device=dev),
+            requires_grad=False)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 torch.empty((d, cfg.vocab_size), dtype=pd, device=dev),
@@ -150,24 +185,19 @@ class CausalLM(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "CausalLM":
         """The reference's initializers, drawn from ``generator`` (on the
-        module's device): truncated-normal fan-in weights, zero norms.
-        Embed first, then each layer's attn and mlp, then the head."""
+        module's device): truncated-normal fan-in weights, zero norms, the
+        SSM's constants.  Embed first, then each layer's leaves in the
+        reference's order, then the head."""
         cfg = self.cfg
         pd = cfg.pdtype
-        self.embed.copy_(dense_init(generator, (cfg.vocab_size, cfg.d_model),
-                                    1, pd))
+        draw(Leaf((cfg.vocab_size, cfg.d_model), pd, 1), generator,
+             out=self.embed)
         for layer in self.layers:
-            for p in layer.parameters(recurse=False):
-                p.zero_()
-            for name, w in init_attn(generator, cfg).items():
-                layer.attn[name].copy_(w)
-            for name, w in init_glu_mlp(generator, cfg.d_model, cfg.d_ff,
-                                        pd).items():
-                layer.mlp[name].copy_(w)
+            layer.init(generator)
         self.final_norm.zero_()
         if not cfg.tie_embeddings:
-            self.lm_head.copy_(dense_init(
-                generator, (cfg.d_model, cfg.vocab_size), 0, pd))
+            draw(Leaf((cfg.d_model, cfg.vocab_size), pd, 0), generator,
+                 out=self.lm_head)
         return self
 
     def logical_axes(self) -> dict:
@@ -175,17 +205,32 @@ class CausalLM(nn.Module):
         (a leading "layers" dim on every layer param)."""
         cfg = self.cfg
         nrm = ("layers", None)
-        lay: dict[str, Any] = {"norm1": nrm, "norm2": nrm}
-        if cfg.post_block_norm:
-            lay["norm1_post"] = nrm
-            lay["norm2_post"] = nrm
-        lay["attn"] = {"wq": ("layers", "embed", "qdim"),
-                       "wk": ("layers", "embed", "kvdim"),
-                       "wv": ("layers", "embed", "kvdim"),
-                       "wo": ("layers", "qdim", "embed")}
-        lay["mlp"] = {"w_gate": ("layers", "embed", "mlp"),
-                      "w_up": ("layers", "embed", "mlp"),
-                      "w_down": ("layers", "mlp", "embed")}
+        lay: dict[str, Any] = {}
+        if cfg.family in ("dense", "vlm", "moe", "hybrid"):
+            lay["norm1"] = nrm
+            lay["norm2"] = nrm
+            if cfg.post_block_norm:
+                lay["norm1_post"] = nrm
+                lay["norm2_post"] = nrm
+        if cfg.family in ("dense", "vlm"):
+            lay["attn"] = attn_axes()
+            lay["mlp"] = mlp_axes()
+        elif cfg.family == "moe":
+            lay["attn"] = attn_axes()
+            moe_ax = {"router": ("layers", "embed", None),
+                      "w_gate": ("layers", "experts", "embed", "mlp"),
+                      "w_up": ("layers", "experts", "embed", "mlp"),
+                      "w_down": ("layers", "experts", "mlp", "embed")}
+            if cfg.dense_residual_ff:
+                moe_ax["dense"] = mlp_axes()
+            lay["moe"] = moe_ax
+        elif cfg.family == "ssm":
+            lay["norm1"] = nrm
+            lay["ssm"] = _ssm_axes()
+        elif cfg.family == "hybrid":
+            lay["mix"] = {"attn": attn_axes(), "ssm": _ssm_axes(),
+                          "gate": ("layers", None)}
+            lay["mlp"] = mlp_axes()
         axes = {"embed": ("vocab", "embed"), "layers": lay,
                 "final_norm": (None,)}
         if not cfg.tie_embeddings:
@@ -195,16 +240,11 @@ class CausalLM(nn.Module):
     def _cast(self) -> dict:
         """The params as the reference's tree (``layers`` a list), float32
         leaves of ndim ≥ 2 cast to the activation dtype."""
-        ad = self.cfg.adtype
-
-        def c(w):
-            return w.to(ad) if (w.dtype == torch.float32 and w.ndim >= 2
-                                ) else w
         tree = {"embed": self.embed, "final_norm": self.final_norm,
                 "layers": [layer.tree() for layer in self.layers]}
         if not self.cfg.tie_embeddings:
             tree["lm_head"] = self.lm_head
-        return _tree_map(c, tree)
+        return cast_tree(tree, self.cfg.adtype)
 
     # ------------------------------------------------------------------
     # forward
@@ -214,25 +254,43 @@ class CausalLM(nn.Module):
         return np.array([cfg.is_local_layer(i)
                          for i in range(cfg.n_layers)])
 
-    def _block(self, lp, x, h_in, positions, is_local):
-        """One block given its first norm ``h_in`` (prefill reuses it for
-        the cache's k and v)."""
-        a = attn_forward(lp["attn"], h_in, self.cfg, positions=positions,
+    def _block(self, lp, x, positions, is_local):
+        """One block of the forward: (x, the layer's MoE aux loss)."""
+        cfg = self.cfg
+        h_in = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        if cfg.family == "ssm":
+            return x + ssm_forward(lp["ssm"], h_in, cfg), None
+        if cfg.family == "hybrid":
+            x = x + hybrid_forward(lp["mix"], h_in, cfg, positions=positions,
+                                   is_local=is_local)
+            return self._mlp(lp, x), None
+        a = attn_forward(lp["attn"], h_in, cfg, positions=positions,
                          is_local=is_local)
         return self._after_attn(lp, x, a)
 
+    def _mlp(self, lp, x):
+        """The hybrid block's GLU MLP and its residual add."""
+        cfg = self.cfg
+        return x + glu_mlp(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps),
+                           cfg.act)
+
     def _after_attn(self, lp, x, a):
-        """The rest of a block given its attention output ``a``: the
-        residual adds, the GLU MLP and Gemma2's post-norms."""
+        """The rest of an attention block given its attention output
+        ``a``: the residual adds, the GLU MLP or the MoE (with its aux
+        loss; None without) and Gemma2's post-norms."""
         cfg = self.cfg
         if cfg.post_block_norm:
             a = rmsnorm(a, lp["norm1_post"], cfg.norm_eps)
         x = x + a
-        h = glu_mlp(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps),
-                    cfg.act)
+        h_in = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+        aux = None
+        if cfg.family == "moe":
+            h, aux = moe_forward(lp["moe"], h_in, cfg)
+        else:
+            h = glu_mlp(lp["mlp"], h_in, cfg.act)
         if cfg.post_block_norm:
             h = rmsnorm(h, lp["norm2_post"], cfg.norm_eps)
-        return x + h
+        return x + h, aux
 
     def _scale(self, x):
         cfg = self.cfg
@@ -270,25 +328,30 @@ class CausalLM(nn.Module):
         return torch.as_tensor(tokens, device=self.device).long()
 
     def forward(self, tokens, prefix_embeds=None):
-        """tokens (B,S) -> (logits (B, S(+P), V) f32, aux 0.0)."""
-        cfg = self.cfg
+        """tokens (B,S) -> (logits (B, S(+P), V) f32, aux): ``aux`` the
+        MoE load-balancing loss summed over layers (0.0 without MoE)."""
         params = self._cast()
         x = self._embed(params, self._tokens(tokens), prefix_embeds)
         positions = self._positions(x)
-        for lp, fl in zip(params["layers"], self._local_flags()):
-            x = self._block(lp, x, rmsnorm(x, lp["norm1"], cfg.norm_eps),
-                            positions, bool(fl))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp, fl in zip(params["layers"], self._local_flags()):
+            x, a = self._block(lp, x, positions, bool(fl))
+            if a is not None:
+                aux = aux + a
         return self._head(params, x), aux
 
     # ------------------------------------------------------------------
     # inference: prefill + decode
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
+        cfg = self.cfg
         cache: dict[str, Any] = {
             "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
-        cache.update(init_kv_cache(self.cfg, batch, max_len,
-                                   device=self.device))
+        if cfg.family != "ssm":
+            cache.update(init_kv_cache(cfg, batch, max_len,
+                                       device=self.device))
+        if cfg.family in ("ssm", "hybrid"):
+            cache.update(init_ssm_cache(cfg, batch, device=self.device))
         return cache
 
     def cache_logical_axes(self, cache) -> dict:
@@ -303,7 +366,7 @@ class CausalLM(nn.Module):
         return ax
 
     def prefill(self, tokens, max_len: int, prefix_embeds=None):
-        """Full-sequence forward that also fills the KV cache.
+        """Full-sequence forward that also fills the KV/SSM caches.
 
         Returns (last-position logits (B,V), cache).  The cache holds
         ``max_len`` slots; tokens fill ``[0, S)``.
@@ -314,18 +377,36 @@ class CausalLM(nn.Module):
         B, S = x.shape[0], x.shape[1]
         positions = self._positions(x)
         cache = self.init_cache(B, max_len)
-        ck, cv = cache["k"], cache["v"]
         for i, (lp, fl) in enumerate(zip(params["layers"],
                                          self._local_flags())):
             h_in = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-            x = self._block(lp, x, h_in, positions, bool(fl))
-            # the cache recomputes k and v from the block's normed input
-            k = (h_in @ lp["attn"]["wk"]).reshape(
-                B, S, cfg.n_kv_heads, cfg.head_dim)
-            v = (h_in @ lp["attn"]["wv"]).reshape(
-                B, S, cfg.n_kv_heads, cfg.head_dim)
-            ck[i, :, :S] = rope(k, positions, cfg.rope_theta).to(cfg.adtype)
-            cv[i, :, :S] = v.to(cfg.adtype)
+            if cfg.family == "ssm":
+                h, st = ssm_forward(lp["ssm"], h_in, cfg, return_state=True)
+                x = x + h
+            elif cfg.family == "hybrid":
+                ap = lp["mix"]["attn"]
+                a = attn_forward(ap, h_in, cfg, positions=positions,
+                                 is_local=bool(fl))
+                s, st = ssm_forward(lp["mix"]["ssm"], h_in, cfg,
+                                    return_state=True)
+                x = self._mlp(lp, x + _mix(lp["mix"], a, s))
+            else:
+                ap = lp["attn"]
+                a = attn_forward(ap, h_in, cfg, positions=positions,
+                                 is_local=bool(fl))
+                x, _ = self._after_attn(lp, x, a)
+            if cfg.family != "ssm":
+                # the cache recomputes k and v from the block's normed input
+                k = (h_in @ ap["wk"]).reshape(B, S, cfg.n_kv_heads,
+                                              cfg.head_dim)
+                v = (h_in @ ap["wv"]).reshape(B, S, cfg.n_kv_heads,
+                                              cfg.head_dim)
+                cache["k"][i, :, :S] = rope(k, positions,
+                                            cfg.rope_theta).to(cfg.adtype)
+                cache["v"][i, :, :S] = v.to(cfg.adtype)
+            if cfg.family in ("ssm", "hybrid"):
+                cache["conv"][i] = st["conv"]
+                cache["state"][i] = st["state"]
         logits = self._head(params, x[:, -1:, :])[:, 0]
         cache["pos"].fill_(S)
         return logits, cache
@@ -335,7 +416,8 @@ class CausalLM(nn.Module):
 
         With ``cfg.cache_update == "dus"`` the new cache's k and v are the
         given tensors, written in place; with ``"onehot"`` they are new
-        tensors and ``cache`` is left as it was."""
+        tensors.  The SSM's conv tail and state are always new tensors;
+        ``cache`` keeps its own."""
         cfg = self.cfg
         params = self._cast()
         pos = cache["pos"]
@@ -344,17 +426,30 @@ class CausalLM(nn.Module):
         x = self._scale(params["embed"][tokens].to(cfg.adtype))
         posb = pos.expand(B)
         in_place = cfg.cache_update == "dus"
-        new_k = cache["k"] if in_place else torch.empty_like(cache["k"])
-        new_v = cache["v"] if in_place else torch.empty_like(cache["v"])
+        new = {name: t if (in_place and name in ("k", "v"))
+               else torch.empty_like(t)
+               for name, t in cache.items() if name != "pos"}
         for i, (lp, fl) in enumerate(zip(params["layers"],
                                          self._local_flags())):
+            lc = {name: t[i] for name, t in cache.items() if name != "pos"}
             h_in = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-            a, k, v = attn_decode(lp["attn"], h_in, cache["k"][i],
-                                  cache["v"][i], posb, cfg,
-                                  is_local=bool(fl))
-            if not in_place:
-                new_k[i] = k
-                new_v[i] = v
-            x = self._after_attn(lp, x, a)
+            if cfg.family == "ssm":
+                h, conv, state = ssm_decode(lp["ssm"], h_in, lc["conv"],
+                                            lc["state"], cfg)
+                x = x + h
+                out = {"conv": conv, "state": state}
+            elif cfg.family == "hybrid":
+                y, out = hybrid_decode(lp["mix"], h_in, lc, posb, cfg,
+                                       is_local=bool(fl))
+                x = self._mlp(lp, x + y)
+            else:
+                a, k, v = attn_decode(lp["attn"], h_in, lc["k"], lc["v"],
+                                      posb, cfg, is_local=bool(fl))
+                x, _ = self._after_attn(lp, x, a)
+                out = {"k": k, "v": v}
+            for name, t in out.items():
+                if not (in_place and name in ("k", "v")):
+                    new[name][i] = t
         logits = self._head(params, x)[:, 0]
-        return logits, {"k": new_k, "v": new_v, "pos": pos + 1}
+        new["pos"] = pos + 1
+        return logits, new

@@ -1,10 +1,11 @@
 """The port's arch registry and the per-arch smoke decode, against the
 reference's ``tests/test_archs.py``: every arch's config equals the
-reference's field for field (full, smoke and ``optimized=True``), the
-five dense and vlm archs prefill and decode at their smoke configs with
-the reference's params carried across (port == reference on the
-logits), and the five families not ported yet raise
-``NotImplementedError``."""
+reference's field for field (full, smoke and ``optimized=True``), and
+all ten archs (every family: dense, vlm, moe, ssm, hybrid and audio)
+prefill and decode at their smoke configs with the reference's params
+carried across (port == reference on the logits) and with the port's
+own init.  ``configs/radic_paper.py`` equals the reference's but for
+its ``backend``."""
 
 import dataclasses
 
@@ -27,16 +28,14 @@ from repro_torch.models.convert import params_from_reference  # noqa: E402
 B, S = 2, 16
 ARCHS = registry.list_archs()
 PORTED = [a for a in ARCHS
-          if registry.get_config(a).family in PORTED_FAMILIES]
-NOT_PORTED = [a for a in ARCHS if a not in PORTED]
+          if registry.get_config(a).family in PORTED_FAMILIES + ("audio",)]
 
 
 def test_registry_equals_the_reference():
     assert registry.ARCHS == ref_registry.ARCHS
     assert registry.OPTIMIZED_OVERRIDES == ref_registry.OPTIMIZED_OVERRIDES
     assert ARCHS == ref_registry.list_archs()
-    assert PORTED == ["yi-34b", "gemma2-9b", "llama3-405b", "llama3-8b",
-                      "internvl2-26b"]
+    assert PORTED == ARCHS
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_config("gpt-5")
 
@@ -65,7 +64,22 @@ def _batch(cfg):
     if cfg.prefix_embeds:
         batch["prefix_embeds"] = np.array(0.02 * jax.random.normal(
             kp, (B, cfg.n_patches, cfg.d_model), jnp.float32))
+    if cfg.family == "audio":
+        batch["frame_embeds"] = np.array(0.02 * jax.random.normal(
+            kp, (B, cfg.n_frames, cfg.d_model), jnp.float32))
     return batch
+
+
+def _port_steps(model, cfg, tb, max_len):
+    """test_archs.py's smoke decode on the port: the prefill step (audio:
+    the warm cross cache) and one decode step."""
+    if cfg.family == "audio":
+        cache = model.warm_cross_cache(model.init_cache(B, max_len),
+                                       tb["frame_embeds"])
+    else:
+        _, cache = make_prefill_step(model, max_len)(tb)
+        assert int(cache["pos"]) == max_len - 4
+    return make_decode_step(model)(cache, {"tokens": tb["tokens"][:, :1]})
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -81,15 +95,17 @@ def test_smoke_decode(arch):
                                   device="cpu")
     batch = _batch(cfg)
     max_len = S + (cfg.n_patches if cfg.prefix_embeds else 0) + 4
-    r_logits, r_cache = ref_steps.make_prefill_step(ref, max_len)(
-        params, jax.tree.map(jnp.asarray, batch))
+    rb = jax.tree.map(jnp.asarray, batch)
+    if cfg.family == "audio":
+        r_cache = ref.warm_cross_cache(params, ref.init_cache(B, max_len),
+                                       rb["frame_embeds"])
+    else:
+        _, r_cache = ref_steps.make_prefill_step(ref, max_len)(params, rb)
     r_logits, _ = ref_steps.make_decode_step(ref)(
-        params, r_cache, {"tokens": jnp.asarray(batch["tokens"][:, :1])})
+        params, r_cache, {"tokens": rb["tokens"][:, :1]})
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     with torch.inference_mode():
-        logits, cache = make_prefill_step(model, max_len)(tb)
-        logits, cache = make_decode_step(model)(
-            cache, {"tokens": tb["tokens"][:, :1]})
+        logits, _ = _port_steps(model, cfg, tb, max_len)
     assert logits.shape == (B, cfg.vocab_size)
     assert torch.isfinite(logits).all()
     np.testing.assert_allclose(logits.numpy(), np.asarray(r_logits),
@@ -105,16 +121,27 @@ def test_smoke_decode_from_the_ports_init(arch):
     tb = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
     max_len = S + (cfg.n_patches if cfg.prefix_embeds else 0) + 4
     with torch.inference_mode():
-        logits, cache = make_prefill_step(model, max_len)(tb)
-        assert int(cache["pos"]) == max_len - 4
-        logits, cache = make_decode_step(model)(
-            cache, {"tokens": tb["tokens"][:, :1]})
+        logits, cache = _port_steps(model, cfg, tb, max_len)
     assert logits.shape == (B, cfg.vocab_size)
     assert torch.isfinite(logits).all()
+    assert int(cache["pos"]) == (1 if cfg.family == "audio"
+                                 else max_len - 3)
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_families_raise(arch):
-    cfg = registry.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
+def test_radic_paper_config_equals_the_reference():
+    """``RadicConfig`` copied as data: the reference's fields, defaults
+    and smoke config, ``backend`` the one deliberate difference (the
+    port's ``"cuda"`` for the reference's ``"pallas"``)."""
+    import dataclasses as dc
+
+    from repro.configs import radic_paper as ref_rp
+    from repro_torch.configs import radic_paper as rp
+    assert [f.name for f in dc.fields(rp.RadicConfig)] == \
+        [f.name for f in dc.fields(ref_rp.RadicConfig)]
+    got, want = dc.asdict(rp.CONFIG), dc.asdict(ref_rp.CONFIG)
+    assert (got.pop("backend"), want.pop("backend")) == ("cuda", "pallas")
+    assert got == want
+    got, want = dc.asdict(rp.smoke()), dc.asdict(ref_rp.smoke())
+    assert got.pop("backend") == "cuda" and want.pop("backend") == "pallas"
+    assert got == want
+    assert rp.RadicConfig.__dataclass_params__.frozen

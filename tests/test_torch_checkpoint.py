@@ -417,9 +417,15 @@ def test_store_from_other_kernel_sources_is_a_miss(tmp_path, monkeypatch):
     e1.flush_store()
     monkeypatch.setattr(_build, "_digest", lambda: "0" * 16)
     e2 = DetEngine(persist_dir=str(tmp_path))
+    # before e2 writes anything: no record of the old sources is planned
+    assert e2.prefill() == 0
     e2.plan(2, 5, device=CPU)
     assert e2.cache_info()["store_misses"] == 1
-    assert e2.prefill() == 0
+    # the miss wrote its family under the new stamp (write-behind): once
+    # it has landed, an engine of the same sources warms it
+    e2.flush_store()
+    e3 = DetEngine(persist_dir=str(tmp_path))
+    assert e3.prefill() == 1
 
 
 # ------------------------------------------------- the kernel library

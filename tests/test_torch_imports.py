@@ -1,6 +1,7 @@
-"""Import hygiene of the port: nothing under ``src/repro_torch`` and not
-``chip_smoke.py`` imports jax or the JAX package ``repro``, and the port
-imports and computes with jax made unimportable."""
+"""Import hygiene of the port: nothing under ``src/repro_torch`` and
+neither ``chip_smoke.py`` nor ``lm_precision.py`` imports jax or the JAX
+package ``repro``, and the port imports and computes with jax made
+unimportable."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / "chip_smoke.py", REPO / "lm_precision.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -63,10 +64,13 @@ def test_port_runs_with_jax_unimportable():
         "got = radic_det_distributed(As[0], mesh=mesh, mode='flat')\n"
         "assert abs(float(got) - want[0]) <= 2e-3 * max(1, abs(want[0]))\n"
         "from repro_torch.launch import serve\n"
-        "gen = serve.main(['--arch', 'gemma2-9b', '--smoke', '--device',\n"
-        "                  'cpu', '--batch', '1', '--prompt-len', '4',\n"
-        "                  '--gen', '2'])\n"
-        "assert gen.shape == (1, 2)\n"
+        "for arch in ('gemma2-9b', 'mamba2-1.3b', 'whisper-medium'):\n"
+        "    gen = serve.main(['--arch', arch, '--smoke', '--device',\n"
+        "                      'cpu', '--batch', '1', '--prompt-len', '4',\n"
+        "                      '--gen', '2'])\n"
+        "    assert gen.shape == (1, 2)\n"
+        "from repro_torch.configs import radic_paper\n"
+        "assert radic_paper.CONFIG.backend == 'cuda'\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
         "print('PORT_OK')\n")

@@ -1,7 +1,9 @@
 """The serving knobs of ``tests/test_perf_knobs.py`` on the port: the
 ``dus`` cache update equals ``onehot`` (and the reference's), and the
 KV-chunked online softmax equals dense attention, with the window and
-the logit softcap too.  The loss knobs wait for the training slice."""
+the logit softcap too; on the hybrid, moe and audio families the two
+knobs together equal the reference under the same knobs.  The loss
+knobs wait for the training slice."""
 
 import numpy as np
 import pytest
@@ -123,3 +125,56 @@ def test_chunked_prefill_and_decode_match_forward():
             lg, cache = m.decode_step(cache, tok[:, t:t + 1])
             np.testing.assert_allclose(lg.numpy(), full[:, t].numpy(),
                                        rtol=2e-3, atol=2e-3)
+
+
+FAMILY_KNOBS = {
+    "hybrid": dict(family="hybrid", ssm_state=16, ssm_head_dim=8,
+                   ssm_chunk=4, attn_window=4, local_global_period=2),
+    "moe": dict(family="moe", n_experts=4, top_k=2, capacity_factor=8.0,
+                moe_group_size=8, moe_impl="onehot"),
+    "audio": dict(family="audio", n_enc_layers=2, enc_dec=True,
+                  n_frames=6),
+}
+
+
+@pytest.mark.parametrize("fam", list(FAMILY_KNOBS))
+def test_serving_knobs_per_family(fam):
+    """The serving knobs of the registry's optimized sets on the other
+    families: ``attn_chunk`` (the chunked online softmax; for audio the
+    bidirectional encoder and the cross attention too) with ``dus``
+    equals the reference under the same knobs, forward and decode."""
+    kw = dict(BASE, **FAMILY_KNOBS[fam], attn_chunk=4, cache_update="dus")
+    ref = ref_build(RefConfig(**kw))
+    params = ref.init(jax.random.PRNGKey(3))
+    m = load_reference(build_model(ModelConfig(**kw), device="cpu"),
+                       jax.tree.map(np.asarray, params))
+    tok = np.random.default_rng(2).integers(0, 97, size=(2, 9))
+    args, r_args = (), ()
+    if fam == "audio":
+        fr = (0.5 * np.random.default_rng(3).standard_normal(
+            (2, 6, 32))).astype(np.float32)
+        args, r_args = (torch.from_numpy(fr),), (jnp.asarray(fr),)
+    r_full, _ = ref.forward(params, jnp.asarray(tok), *r_args)
+    with torch.inference_mode():
+        full, _ = m.forward(tok, *args)
+    np.testing.assert_allclose(full.numpy(), np.asarray(r_full), rtol=1e-3,
+                               atol=1e-4)
+    if fam == "audio":
+        r_cache = ref.warm_cross_cache(params, ref.init_cache(2, 9),
+                                       r_args[0])
+        cache = m.warm_cross_cache(m.init_cache(2, 9), args[0])
+        start = 0
+    else:
+        _, r_cache = ref.prefill(params, jnp.asarray(tok[:, :6]), max_len=9)
+        with torch.inference_mode():
+            _, cache = m.prefill(tok[:, :6], max_len=9)
+        start = 6
+    for t in range(start, 9):
+        r_lg, r_cache = ref.decode_step(params, r_cache,
+                                        jnp.asarray(tok[:, t:t + 1]))
+        with torch.inference_mode():
+            lg, cache = m.decode_step(cache, tok[:, t:t + 1])
+        np.testing.assert_allclose(lg.numpy(), np.asarray(r_lg), rtol=1e-3,
+                                   atol=1e-4)
+        np.testing.assert_allclose(lg.numpy(), full[:, t].numpy(),
+                                   rtol=2e-3, atol=2e-3)

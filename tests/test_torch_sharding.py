@@ -4,8 +4,8 @@ tables, and ``spec_for`` with its fallbacks for every param of every
 arch's ``logical_axes()`` (full widths, from the reference's abstract
 init), on stand-in meshes of shapes (16, 16) and (2, 16, 16), with the
 small and the large param tables and each arch's own rules.  The port's
-``logical_axes`` and param shapes equal the reference's for the ported
-families; ``constraint`` is the identity (the port has no sharded
+``logical_axes`` and param shapes equal the reference's for every arch;
+``constraint`` is the identity (the port has no sharded
 tensor type)."""
 
 import types
@@ -23,7 +23,7 @@ from repro.parallel import sharding as ref_sharding  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import Mesh  # noqa: E402
 from repro_torch.launch.mesh import make_rules  # noqa: E402
-from repro_torch.models import PORTED_FAMILIES, build_model  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.parallel import sharding  # noqa: E402
 
 MESHES = {"16x16": {"data": 16, "model": 16},
@@ -81,22 +81,27 @@ def test_spec_for_equals_the_reference(arch, mesh, reference_axes):
         assert got_fb == want_fb
 
 
-@pytest.mark.parametrize("arch", [a for a in registry.list_archs()
-                                  if registry.get_config(a).family
-                                  in PORTED_FAMILIES])
+def _stacked_shapes(prefix: str, tree: dict, L: int) -> dict:
+    """A layer's (nested) param dict as {dotted path: (L, *shape)}."""
+    out = {}
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            out.update(_stacked_shapes(f"{prefix}.{key}", sub, L))
+        else:
+            out[f"{prefix}.{key}"] = (L, *sub.shape)
+    return out
+
+
+@pytest.mark.parametrize("arch", registry.list_archs())
 def test_logical_axes_and_shapes_equal_the_reference(arch, reference_axes):
     ref_tree, shapes, axes = reference_axes[arch]
     model = build_model(registry.get_config(arch), device="meta")
     assert model.logical_axes() == ref_tree
-    L = model.cfg.n_layers
     port_shapes = {name: tuple(p.shape)
                    for name, p in model.named_parameters(recurse=False)}
-    layer = model.layers[0].tree()
-    for key, sub in layer.items():
-        subs = sub.items() if isinstance(sub, dict) else [(None, sub)]
-        for k, p in subs:
-            port_shapes[f"layers.{key}" + (f".{k}" if k else "")] = \
-                (L, *p.shape)
+    for name, layers in model.named_children():
+        port_shapes.update(_stacked_shapes(name, layers[0].tree(),
+                                           len(layers)))
     flat = jax.tree_util.tree_flatten_with_path(
         jax.eval_shape(ref_build(ref_registry.get_config(arch)).init,
                        jax.random.PRNGKey(0)))[0]

@@ -200,6 +200,28 @@ per source, all at once) and runs these phases, each printing its lines:
    grok-1's scatter path bit for bit the same in two calls and its
    ``onehot`` dispatch within 1e-4 of ``scatter`` at no drops;
    whisper's EOS leg ending slot 0; the phase's wall.
+18. training (``repro_torch.launch.train`` and ``steps``): llama3-8b at
+   its published width cut to 2 layers, bf16, remat on, B = 2 and
+   S = 2,048 from the synthetic pipeline: one train step run twice from
+   the same state (a fresh draw from the same seed) bit for bit in loss,
+   gradient norm and params; six more steps timed by CUDA events (their
+   median, and of their halves: the loss and its gradient, AdamW; then
+   the loss's forward alone), tokens/s and peak memory beside the
+   step's bound (model FLOPs at 989 TFLOP/s bf16 dense plus AdamW's
+   bytes at 3.35 TB/s); the
+   bf16 loss and gradient against a float32 copy of the same params made
+   in place (loss within 1e-2 relative, the gradient within 5e-2
+   relative Frobenius error); on that copy the chunked CE
+   (``loss_chunk=1024``: two chunks, one pad position) against the full
+   CE (loss within 1e-4, gradients ``rtol=2e-3, atol=1e-5``) and remat
+   ``nothing`` and ``dots`` against none (loss within 1e-5, gradients
+   finite); 12 steps of ``train.main`` decreasing the loss; then
+   ``examples/train_lm_torch.py`` at its defaults in this process (its
+   ``OK`` lines, K2 and K3 at B = 1 launched by its determinant-
+   regularized head, then both held against float64 plain on the head's
+   final ``H``), and at the example's width a run of 12 steps with a
+   checkpoint resumed to 20 whose 8 losses equal an uninterrupted run's
+   bit for bit; the phase's wall.
 
 Every check holds ``|got - want| <= 2e-3 * max(1, |want|)`` (the
 reference's tolerance against its oracles), ``want`` from the plain
@@ -2812,6 +2834,363 @@ def phase_lm_families() -> list:
     return results
 
 
+# ---------------------------------------------------------------- training
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 12
+TRAIN_ARGS = ["--arch", "llama3-8b", "--layers", "2", "--batch",
+              str(TRAIN_B), "--seq", str(TRAIN_S), "--steps",
+              str(TRAIN_STEPS), "--lr", "1e-3", "--device", "cuda"]
+# peak of one H100 SXM for dense bf16 on the tensor cores (data sheet)
+PEAK_BF16_FLOPS = 989e12
+
+
+def grads_rel_fro(got: dict, want: dict) -> float:
+    """The global gradient's ||got - want||_F / ||want||_F over every
+    leaf, in float64."""
+    num = den = 0.0
+    for name, w in want.items():
+        num += torch.linalg.vector_norm(got[name].float() - w.float(),
+                                        dtype=torch.float64).item() ** 2
+        den += torch.linalg.vector_norm(w, dtype=torch.float64).item() ** 2
+    return (num / den) ** 0.5
+
+
+def grads_allclose(got: dict, want: dict, rtol: float, atol: float
+                   ) -> float:
+    """max over leaves of max(|got - want| - rtol |want|) - atol: at most
+    0 exactly where ``assert_allclose(got, want, rtol, atol)`` passes
+    for every leaf."""
+    worst = float("-inf")
+    for name, w in want.items():
+        d = (got[name].double() - w.double()).abs() - rtol * w.double().abs()
+        worst = max(worst, d.max().item() - atol)
+    return worst
+
+
+def train_bound_ms(model, tokens: int) -> tuple[float, float, float, float]:
+    """(bound, its FLOP term, its bytes term, remat's recompute) of one
+    train step, ms.  The bound counts only the work a step needs: the
+    matmul params' 6 FLOPs a token and causal attention's lower half of
+    the S x S products forward and backward (6·B·H·S²·D a layer) at 989
+    TFLOP/s; and AdamW reading each param, gradient and moment once and
+    writing each param and moment once at 3.35 TB/s.  Remat's recompute
+    of the layers' forward (2 FLOPs a layer param a token, 2·B·H·S²·D a
+    layer) is returned apart, outside the bound."""
+    cfg = model.cfg
+    layer_mm = sum(p.numel() for p in model.layers.parameters()
+                   if p.ndim >= 2)
+    head_mm = model.lm_head.numel()
+    attn_fwd = 2 * TRAIN_B * cfg.n_heads * TRAIN_S ** 2 * cfg.head_dim \
+        * cfg.n_layers
+    flops = 6 * (layer_mm + head_mm) * tokens + 3 * attn_fwd
+    recompute = 2 * layer_mm * tokens + attn_fwd
+    moment = 4                                   # float32 mu and nu
+    nbytes = sum(p.numel() * (3 * p.element_size() + 4 * moment)
+                 for p in model.parameters())
+    t_flops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_flops + t_bytes, t_flops, t_bytes,
+            recompute / PEAK_BF16_FLOPS * 1e3)
+
+
+ADAMW_HELD = ("layers.0.attn.wq", "layers.1.mlp.w_down", "layers.1.norm2",
+              "final_norm")
+
+
+def hold_adamw_step(params: dict, grads: dict, opt: dict, opt_cfg,
+                    names=ADAMW_HELD) -> tuple[dict, dict]:
+    """One ``adamw_update`` on the card, with ``names``' params, moments
+    and the update recomputed in float64 by the reference's formula
+    from the same gradients, moments and step (the clip scale from a
+    float64 global norm).  Returns (the new state, a report); the
+    report's ``ok`` holds:
+
+    * the gradient norm within 1e-5 relative of float64's;
+    * mu and nu within 1e-4 of the magnitude of their two terms
+      (``b·m + (1 - b)·g``) plus 1e-37 (float32's subnormals): float32
+      rounding, where a no-op or wrong update is off by the whole new
+      term;
+    * a float32 param within float32's error: 4 float32 ulps of ``|p|``,
+      1e-5 of its update ``lr·|delta|`` (the float32 bias corrections
+      and quotient) and ``lr`` times mu's rounding (8 ulps of its two
+      terms) carried through ``delta`` (where mu's terms cancel, that
+      rounding is most of a small ``delta``);
+    * a bf16 param equal to the float64 result rounded to float32 then
+      bf16 (the card's chain) at all but 1e-3 of its elements, none off
+      by more than 1 bf16 ulp plus float32's error (where ``p`` and its
+      update cancel, that error exceeds the result's ulp); ``moved`` is
+      the share the step changed.
+    """
+    from repro_torch.optim import adamw_update
+    gnorm = sum(torch.linalg.vector_norm(g, dtype=torch.float64).item() ** 2
+                for g in grads.values()) ** 0.5
+    t = int(opt["step"]) + 1
+    lr = float(opt_cfg.lr(opt["step"] + 1))
+    snap = {n: (params[n].detach().double(), grads[n].double(),
+                opt["mu"][n].double(), opt["nu"][n].double())
+            for n in names}
+    _, opt, m = adamw_update(params, grads, opt, opt_cfg)
+    b1, b2, eps, wd = opt_cfg.b1, opt_cfg.b2, opt_cfg.eps, \
+        opt_cfg.weight_decay
+    scale = min(1.0, opt_cfg.grad_clip / (gnorm + 1e-9))
+    r_gnorm = abs(m["grad_norm"].item() - gnorm) / gnorm
+    report = {"step": t, "lr": lr, "grad_norm": gnorm, "rel_gnorm": r_gnorm,
+              "lr_card": m["lr"].item()}
+    ok = r_gnorm <= 1e-5 and m["lr"].item() == lr
+    eps32 = 2.0 ** -24
+    for n, (p0, g, mu0, nu0) in snap.items():
+        g = g * scale
+        mu = b1 * mu0 + (1 - b1) * g
+        nu = b2 * nu0 + (1 - b2) * g * g
+        delta = (mu / (1 - b1 ** t)) / ((nu / (1 - b2 ** t)).sqrt() + eps) \
+            + wd * p0
+        p = p0 - lr * delta
+        w_mu = ((opt["mu"][n].double() - mu).abs()
+                - 1e-4 * (b1 * mu0.abs() + (1 - b1) * g.abs())
+                - 1e-37).max().item()
+        w_nu = ((opt["nu"][n].double() - nu).abs()
+                - 1e-4 * (b2 * nu0 + (1 - b2) * g * g) - 1e-37).max().item()
+        got = params[n].detach()
+        row = {"w_mu": w_mu, "w_nu": w_nu}
+        mu_err = 8 * eps32 * (b1 * mu0.abs() + (1 - b1) * g.abs())
+        err32 = 4 * eps32 * p0.abs() + lr * (
+            1e-5 * delta.abs()
+            + mu_err / (1 - b1 ** t) / ((nu / (1 - b2 ** t)).sqrt() + eps))
+        if got.dtype == torch.float32:
+            w_p = (got.double() - p).abs() - err32
+            i = int(w_p.argmax())
+            row["w_p"] = w_p.flatten()[i].item()
+            row["worst"] = [t_.flatten()[i].item() for t_ in
+                            (p0, g, mu0, nu0, p, got.double(), err32)]
+            good = row["w_p"] <= 0
+        else:
+            want = p.float().to(got.dtype)
+            off = got != want
+            ulp = (got.double() - p).abs() - 2.0 ** -7 * p.abs() - err32
+            row["off"] = off.double().mean().item()
+            row["w_ulp"] = ulp.max().item()
+            good = row["off"] <= 1e-3 and row["w_ulp"] <= 0
+        row["moved"] = (got.double() != p0).double().mean().item()
+        ok &= good and w_mu <= 0 and w_nu <= 0
+        report[n] = row
+    report["ok"] = ok
+    return opt, report
+
+
+def phase_train(errs: Errors, gen: torch.Generator) -> dict:
+    """Phase 18: the training path on the card: a full-width llama3-8b
+    step (2 layers, bf16) against its float32 copy, the chunked CE and
+    remat, two steps bit for bit, the driver's loss decreasing; the
+    train example with its K2/K3 head; a resume bit for bit."""
+    import statistics
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import (init_train_state, make_train_step,
+                                          value_and_grad)
+    from repro_torch.optim import AdamWConfig, adamw_update, warmup_cosine
+    print(card_line(), flush=True)
+    t0 = time.perf_counter()
+    cfg = get_config("llama3-8b").replace(n_layers=2)
+    check(cfg.remat and cfg.adtype == cfg.pdtype == torch.bfloat16,
+          f"llama3-8b is not bf16 with remat: {cfg}")
+    opt_cfg = AdamWConfig(lr=warmup_cosine(1e-3, 20, TRAIN_STEPS),
+                          weight_decay=0.01)
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_S, global_batch=TRAIN_B))
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in data.batch(s).items()} for s in range(7)]
+    tokens = TRAIN_B * TRAIN_S
+
+    def fresh():
+        return init_train_state(cfg, opt_cfg,
+                                torch.Generator("cuda").manual_seed(0))
+
+    # one step twice from the same state: bit for bit
+    model, opt = fresh()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt, m1 = make_train_step(model, opt_cfg)(opt, batches[0])
+    first = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss1, gn1 = m1["loss"].clone(), m1["grad_norm"].clone()
+    del model, opt, m1
+    free_card()
+    model, opt = fresh()
+    step = make_train_step(model, opt_cfg)
+    opt, m2 = step(opt, batches[0])
+    same = (torch.equal(loss1, m2["loss"])
+            and torch.equal(gn1, m2["grad_norm"])
+            and all(torch.equal(first[n], p)
+                    for n, p in model.named_parameters()))
+    print(f"train llama3-8b 2 layers bf16: {n_params} params; one step "
+          f"twice from the same state: loss {loss1.item():.6f}, grad_norm "
+          f"{gn1.item():.6f}, bit for bit {same}", flush=True)
+    check(same, "two train steps from the same state differ")
+    del first
+
+    # six more steps, timed by CUDA events: the step's two halves (the
+    # loss and its gradient; AdamW), then the loss's forward alone
+    torch.cuda.reset_peak_memory_stats()
+    params = dict(model.named_parameters())
+    times, halves, losses = [], [], [m2["loss"].item()]
+    for b in batches[1:]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss, grads = value_and_grad(model, b)
+        ev[1].record()
+        _, opt, m = adamw_update(params, grads, opt, opt_cfg)
+        ev[2].record()
+        ev[2].synchronize()
+        del grads
+        times.append(ev[0].elapsed_time(ev[2]))
+        halves.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+        losses.append(loss.item())
+    step_ms = statistics.median(times)
+    grad_ms = statistics.median(h[0] for h in halves)
+    adamw_ms = statistics.median(h[1] for h in halves)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model.loss(batches[1]), min_reps=3)
+    bound, t_flops, t_bytes, t_remat = train_bound_ms(model, tokens)
+    print(f"train step (B={TRAIN_B}, S={TRAIN_S}, remat nothing): "
+          f"{step_ms:.3f} ms median of {len(times)} (CUDA events; "
+          f"{', '.join(f'{t:.3f}' for t in times)}), "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory {peak:.2f} "
+          f"GB; bound {bound:.3f} ms ({t_flops:.3f} ms of FLOPs at "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s + {t_bytes:.3f} ms of "
+          f"AdamW bytes at {PEAK_BYTES / 1e12:.2f} TB/s; remat's "
+          f"recompute, outside it, {t_remat:.3f} ms), "
+          f"{bound / step_ms:.1%} of it; losses {losses}", flush=True)
+    print(f"train step halves (medians): loss and gradient {grad_ms:.3f} "
+          f"ms against {t_flops:.3f} ms of FLOPs; AdamW {adamw_ms:.3f} ms "
+          f"against {t_bytes:.3f} ms of bytes; the loss's forward alone "
+          f"(no autograd) {fwd_ms:.3f} ms", flush=True)
+    # one more step, its AdamW update held against float64
+    loss, grads = value_and_grad(model, batches[0])
+    opt, held = hold_adamw_step(params, grads, opt, opt_cfg)
+    print(f"train AdamW step against float64 (the reference's formula on "
+          f"the same gradients and moments): {json.dumps(held)}", flush=True)
+    check(held["ok"], f"the AdamW update disagrees with float64: {held}")
+    del opt, step, m, m2, params, grads
+    free_card()
+
+    # the bf16 loss and gradient against a float32 copy of the params
+    batch = batches[0]
+    loss16, g16 = value_and_grad(model, batch)
+    to_float32(model)
+    loss32, g32 = value_and_grad(model, batch)
+    r_loss = abs(loss16.item() - loss32.item()) / abs(loss32.item())
+    r_grad = grads_rel_fro(g16, g32)
+    print(f"train bf16 vs float32 copy: loss {loss16.item():.6f} vs "
+          f"{loss32.item():.6f} (rel {r_loss:.3e}, tol 1e-2); gradient "
+          f"relative Frobenius error {r_grad:.4e} (tol 5e-2)", flush=True)
+    check(r_loss <= 1e-2, f"bf16 loss vs float32 {r_loss:.3e} > 1e-2")
+    check(r_grad <= 5e-2, f"bf16 gradient vs float32 {r_grad:.4e} > 5e-2")
+    del g16
+
+    # the chunked CE and remat on the float32 copy
+    cfg32 = model.cfg
+    lossc, gc = value_and_grad(with_cfg(model, cfg32.replace(
+        loss_chunk=1024)), batch)
+    dc = abs(lossc.item() - loss32.item())
+    wc = grads_allclose(gc, g32, 2e-3, 1e-5)
+    print(f"train chunked CE (loss_chunk=1024, 2 chunks, 1 pad) vs full: "
+          f"|d loss| {dc:.3e} (tol 1e-4); gradients max(|d| - 2e-3 |f|) "
+          f"- 1e-5 = {wc:.3e} (<= 0), relative Frobenius "
+          f"{grads_rel_fro(gc, g32):.3e}", flush=True)
+    check(dc < 1e-4, f"chunked CE loss off by {dc:.3e}")
+    check(wc <= 0, "chunked CE gradients outside rtol=2e-3, atol=1e-5")
+    del gc, g32
+    remats = {"nothing": loss32.item()}
+    finite = True
+    for name, kw in (("none", dict(remat=False)),
+                     ("dots", dict(remat_policy="dots"))):
+        lr_, gr = value_and_grad(with_cfg(model, cfg32.replace(**kw)),
+                                 batch)
+        remats[name] = lr_.item()
+        finite &= all(bool(torch.isfinite(g).all()) for g in gr.values())
+        del gr
+    dr = max(abs(v - remats["none"]) for v in remats.values())
+    print(f"train remat: losses {remats} (max |d| vs none {dr:.3e}, tol "
+          f"1e-5), gradients finite {finite}", flush=True)
+    check(dr < 1e-5 and finite, f"remat changes the loss by {dr:.3e}")
+    del model
+    free_card()
+
+    # the train driver, 12 steps at full width
+    t_main = time.perf_counter()
+    run = train.main(TRAIN_ARGS)
+    print(f"train.main {' '.join(TRAIN_ARGS)}: losses {run} in "
+          f"{time.perf_counter() - t_main:.1f} s", flush=True)
+    check(len(run) == TRAIN_STEPS and run[-1] < run[0],
+          "the train driver's loss did not decrease")
+    free_card()
+    result = {"params": n_params, "step_ms": step_ms, "bound_ms": bound,
+              "grad_ms": grad_ms, "adamw_ms": adamw_ms, "fwd_ms": fwd_ms,
+              "tokens_s": tokens / step_ms * 1e3, "peak_gb": peak,
+              "rel_loss": r_loss, "rel_grad": r_grad, "chunk_dloss": dc,
+              "remat_dloss": dr, "remat_ms": t_remat, "losses": run}
+    result |= phase_train_example(errs, gen)
+    print(f"train: phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return result
+
+
+def phase_train_example(errs: Errors, gen: torch.Generator) -> dict:
+    """Phase 18's example legs: ``examples/train_lm_torch.py`` with the
+    launch counts set to 0 just before it and read just after, K2 and K3
+    at B = 1 on its head against float64 plain, and a resume at its
+    width bit for bit."""
+    import tempfile
+    from repro_torch.core.engine import rank_table
+    from repro_torch.core.pascal import comb
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels.radic_fused import (radic_grad_partial_plain,
+                                                 radic_partial_plain)
+    from repro_torch.launch import train
+    reset_launch_counts()
+    out, example = run_example("train_lm_torch.py", [])
+    counts = launch_counts()
+    check("OK: loss went from" in out
+          and "OK: determinant-regularized head stays full-rank" in out,
+          "the train example's OK lines are missing")
+    k2, k3 = counts["radic_partial_cuda"], counts["radic_grad_partial_cuda"]
+    shown = {k: v for k, v in counts.items() if v}
+    print(f"train example launches {json.dumps(shown)}", flush=True)
+    check(k2 > 0 and k3 > 0, "the train example's head launched no K2 or "
+          "no K3 at B = 1")
+    m, n = example.K_HEAD, example.D_HEAD
+    table = rank_table(n, m, backend="cuda", device="cuda")
+    total = comb(n, m)
+    reset_launch_counts()
+    for label in ("H_reg", "H_plain"):
+        H = example.result[label].detach()
+        ct = torch.randn((), device="cuda", generator=gen)
+        errs.hold("K2", f"train head {label} ({m},{n})",
+                  ops.radic_det_cuda(H, table=table),
+                  radic_partial_plain(H, table, 0, total,
+                                      dtype=torch.float64))
+        errs.hold("K3", f"train head {label} B=1 ({m},{n})",
+                  ops.radic_det_grad_cuda(H, ct, table=table),
+                  radic_grad_partial_plain(H, ct, table, 0, total,
+                                           dtype=torch.float64))
+    print(f"train example: K2 and K3 held on the head (launches "
+          f"{json.dumps({k: v for k, v in launch_counts().items() if v})},"
+          f" not counted above)", flush=True)
+
+    # a resume at the example's width equals an uninterrupted run
+    args = ["--arch", example.ARCH, "--batch", "8", "--seq", "128",
+            "--ckpt-every", "10", "--lr", "1e-3", "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as a, \
+            tempfile.TemporaryDirectory() as b:
+        train.main(args + ["--ckpt", a, "--steps", "12"])
+        resumed = train.main(args + ["--ckpt", a, "--steps", "20"])
+        whole = train.main(args + ["--ckpt", b, "--steps", "20"])
+    print(f"train resume at the example's width: resumed at 12 "
+          f"{resumed}; uninterrupted steps 12..19 {whole[12:]}; bit for "
+          f"bit {resumed == whole[12:]}", flush=True)
+    check(len(resumed) == 8 and resumed == whole[12:],
+          "the resumed run's losses differ from the uninterrupted run's")
+    return {"K2": k2, "K3": k3}
+
+
 # ------------------------------------------------------------ the examples
 QUICKSTART_LABELS = ("oracle (numpy enumeration)",
                      "flat torch (rank-parallel)", "fused CUDA kernel",
@@ -2820,7 +3199,8 @@ QUICKSTART_LABELS = ("oracle (numpy enumeration)",
 
 def run_example(name: str, argv: list[str]):
     """Run ``examples/<name>``'s ``main(argv)`` in this process (so the
-    launch counts see its kernels): what it printed, and the module."""
+    launch counts see its kernels): what it printed, and the module (its
+    ``result`` what ``main`` returned)."""
     import contextlib
     import importlib.util
     import io
@@ -2830,7 +3210,7 @@ def run_example(name: str, argv: list[str]):
     spec.loader.exec_module(mod)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        mod.main(argv)
+        mod.result = mod.main(argv)
     print(buf.getvalue(), end="", flush=True)
     return buf.getvalue(), mod
 
@@ -3201,6 +3581,9 @@ def main() -> int:
     profiler_probe(autograd["A"])
     phase_lm_families()
     done("17 LM families")
+    free_card()
+    phase_train(errs, gen)
+    done("18 training")
     csrc = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     rows = []

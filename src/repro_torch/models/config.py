@@ -3,9 +3,10 @@
 Port of ``repro/models/config.py``: the same frozen dataclass, field for
 field, so ``dataclasses.asdict`` of a config equals the reference's.
 :attr:`ModelConfig.pdtype` and :attr:`ModelConfig.adtype` return torch
-dtypes.  ``remat``, ``remat_policy`` and ``scan_layers`` are kept as
-fields for the training and dry-run slices; serving ignores them (layers
-run one after another in eager torch)."""
+dtypes.  ``remat`` and ``remat_policy`` act while autograd records (the
+training loss recomputes each block in its backward); serving ignores
+them.  ``scan_layers`` is kept for the dry-run slice: layers run one
+after another in eager torch."""
 
 from __future__ import annotations
 

@@ -12,9 +12,17 @@ weights as ``(in, out)``, so a leaf moves by a copy:
 the same bits.  Caches move whole: any of the reference's key sets
 (``k``/``v``, ``conv``/``state``, both, or ``k``/``v``/``ck``/``cv``;
 with ``pos``).  Leaves are numpy arrays (anything ``np.asarray``
-takes); a ``bfloat16`` leaf (``ml_dtypes``' dtype, which jax arrays
-convert to) moves as its 16-bit pattern, and writing one back needs
-``ml_dtypes`` for the numpy dtype.
+takes) or torch tensors; a ``bfloat16`` leaf (``ml_dtypes``' dtype,
+which jax arrays convert to) moves as its 16-bit pattern, and writing
+one back needs ``ml_dtypes`` for the numpy dtype.
+
+Any per-parameter tree moves the same way: :func:`tree_to_reference`
+stacks a dict keyed by the model's parameter names (gradients, AdamW's
+moments) into the reference's layout, :func:`tree_from_reference` slices
+one back, and :func:`opt_state_to_reference` /
+:func:`opt_state_from_reference` carry AdamW's state (``step``, ``mu``,
+``nu``), each round trip bit for bit.  ``reference_tree`` is the stacked
+layout with torch leaves, as the train driver checkpoints it.
 """
 
 from __future__ import annotations
@@ -27,10 +35,14 @@ from torch import nn
 from .config import ModelConfig
 
 __all__ = ["params_from_reference", "params_to_reference",
-           "load_reference", "cache_from_reference", "cache_to_reference"]
+           "load_reference", "cache_from_reference", "cache_to_reference",
+           "reference_tree", "tree_to_reference", "tree_from_reference",
+           "opt_state_to_reference", "opt_state_from_reference"]
 
 
 def _to_torch(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device)
     a = np.array(a, order="C")  # a writable copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(
@@ -95,25 +107,8 @@ def _stacks(model: nn.Module) -> dict[str, nn.ModuleList]:
 def load_reference(model: nn.Module, tree) -> nn.Module:
     """Copy a reference param tree into ``model``'s params (same keys at
     every level, shapes and dtypes, else ``ValueError``)."""
-    dev = model.device
-    top = {k: v for k, v in model.named_parameters(recurse=False)}
-    stacks = _stacks(model)
-    _same_keys(tree.keys(), [*top, *stacks], "params")
-    for name, p in top.items():
-        _copy(p, _to_torch(tree[name], dev), name)
-    for lname, layers in stacks.items():
-        if not len(layers):
-            continue
-        want: dict = layers[0].tree()
-        _check_nesting(tree[lname], want, lname)
-        for path, stacked in _flatten(tree[lname]).items():
-            stacked = _to_torch(stacked, dev)
-            if stacked.shape[0] != len(layers):
-                raise ValueError(f"{lname}.{path}: {stacked.shape[0]} "
-                                 f"stacked layers for {len(layers)}")
-            for i, layer in enumerate(layers):
-                _copy(layer.get_parameter(path), stacked[i],
-                      f"{lname}.{path}[{i}]")
+    for name, t in tree_from_reference(model, tree).items():
+        _copy(model.get_parameter(name), t, name)
     return model
 
 
@@ -136,18 +131,95 @@ def _unflatten(flat: dict) -> dict:
     return out
 
 
+def reference_tree(model: nn.Module, named: dict) -> dict:
+    """A dict keyed by ``model``'s parameter names (any per-parameter
+    tensors: the params, their gradients, moments) in the reference's
+    layout, torch leaves: layer entries stacked on a leading ``(L, ...)``
+    dim, nested as the reference nests them."""
+    tree: dict = {name: named[name]
+                  for name, _ in model.named_parameters(recurse=False)}
+    for lname, layers in _stacks(model).items():
+        paths = list(_flatten(layers[0].tree()))
+        tree[lname] = _unflatten({
+            path: torch.stack([named[f"{lname}.{i}.{path}"].detach()
+                               for i in range(len(layers))])
+            for path in paths})
+    return tree
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def tree_to_reference(model: nn.Module, named: dict) -> dict:
+    """:func:`reference_tree` with numpy leaves (bf16 as ``ml_dtypes``'),
+    to compare leaf for leaf with a reference tree."""
+    return _map(_to_numpy, reference_tree(model, named))
+
+
 def params_to_reference(model: nn.Module) -> dict:
     """``model``'s params as the reference's tree of numpy arrays (layer
     params stacked on a leading ``(L, ...)`` dim, nested as the
     reference nests them)."""
-    tree: dict = {name: _to_numpy(p)
-                  for name, p in model.named_parameters(recurse=False)}
-    for lname, layers in _stacks(model).items():
-        flats = [_flatten(layer.tree()) for layer in layers]
-        tree[lname] = _unflatten({
-            path: np.stack([_to_numpy(f[path]) for f in flats])
-            for path in flats[0]})
-    return tree
+    return tree_to_reference(model, dict(model.named_parameters()))
+
+
+def tree_from_reference(model: nn.Module, tree, device=None) -> dict:
+    """A per-parameter tree in the reference's layout (numpy or torch
+    leaves) as a dict keyed by ``model``'s parameter names, in
+    ``named_parameters()`` order, on ``device`` (default: the model's);
+    a layer's entry is a view of its stacked leaf.  The keys at every
+    level and each leaf's shape must be the params' (``ValueError``); the
+    dtype is the tree's."""
+    dev = model.device if device is None else device
+    stacks = _stacks(model)
+    top = [name for name, _ in model.named_parameters(recurse=False)]
+    _same_keys(tree.keys(), [*top, *stacks], "tree")
+    leaves = {name: (_to_torch(tree[name], dev), name) for name in top}
+    for lname, layers in stacks.items():
+        if not len(layers):
+            continue
+        _check_nesting(tree[lname], layers[0].tree(), lname)
+        for path, stacked in _flatten(tree[lname]).items():
+            stacked = _to_torch(stacked, dev)
+            if stacked.shape[0] != len(layers):
+                raise ValueError(f"{lname}.{path}: {stacked.shape[0]} "
+                                 f"stacked layers for {len(layers)}")
+            for i in range(len(layers)):
+                leaves[f"{lname}.{i}.{path}"] = (stacked[i],
+                                                 f"{lname}.{path}[{i}]")
+    out = {}
+    for name, p in model.named_parameters():
+        t, where = leaves[name]
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{where}: reference leaf {tuple(t.shape)} "
+                             f"for a {tuple(p.shape)} param")
+        out[name] = t
+    return out
+
+
+def opt_state_to_reference(model: nn.Module, state: dict) -> dict:
+    """AdamW's state as the reference's: ``step`` an int32 0-d array,
+    ``mu`` and ``nu`` in the params' stacked nesting (numpy leaves)."""
+    return {"step": np.asarray(_to_numpy(state["step"]), np.int32),
+            "mu": tree_to_reference(model, state["mu"]),
+            "nu": tree_to_reference(model, state["nu"])}
+
+
+def opt_state_from_reference(model: nn.Module, state, device=None) -> dict:
+    """The reference's AdamW state (numpy or torch leaves) as the port's:
+    ``step`` an int32 0-d tensor, ``mu``/``nu`` keyed by parameter name,
+    on ``device`` (default: the model's)."""
+    dev = model.device if device is None else device
+    step = state["step"]
+    if not isinstance(step, torch.Tensor):
+        step = torch.from_numpy(np.array(step, np.int32))
+    def own(tree):  # AdamW updates the moments in place
+        return {k: v.clone() for k, v in
+                tree_from_reference(model, tree, dev).items()}
+    return {"step": step.to(dev, torch.int32).clone(),
+            "mu": own(state["mu"]), "nu": own(state["nu"])}
 
 
 # the reference's cache layouts: attention, ssm, hybrid, encoder-decoder

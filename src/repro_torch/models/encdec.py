@@ -11,7 +11,10 @@ reference's: self-attention ``k``/``v`` over ``max_len`` and the cross
 memories ``ck``/``cv`` over ``n_frames``, filled once by
 :meth:`warm_cross_cache` and read by each decode step with
 ``kv_ready`` all true and ``write=False`` at position ``n_frames - 1``.
-The training loss waits for the training slice.
+:meth:`EncDecLM.loss` is the reference's CE over the decoder (no aux
+term); with ``cfg.remat`` every encoder and decoder block runs under
+:func:`~repro_torch.models.lm.remat` with nothing saved, as the
+reference's ``nothing_saveable`` checkpoint, while autograd records.
 """
 
 from __future__ import annotations
@@ -19,12 +22,14 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .attention import attn_decode, attn_forward, attn_spec, init_kv_cache
 from .config import ModelConfig
 from .layers import Leaf, ParamTree, draw, glu_mlp, glu_spec, rmsnorm
-from .lm import attn_axes, cast_tree, f32_product, mlp_axes, model_device
+from .lm import (attn_axes, cast_tree, cross_entropy, f32_product,
+                 mlp_axes, model_device, remat)
 
 __all__ = ["EncDecLM"]
 
@@ -120,16 +125,20 @@ class EncDecLM(nn.Module):
         return f32_product(x, params["lm_head"].to(x.dtype))
 
     # -- encoder --------------------------------------------------------
+    def _enc_block(self, lp, x, pos):
+        cfg = self.cfg
+        x = x + attn_forward(lp["attn"], rmsnorm(x, lp["norm1"],
+                                                 cfg.norm_eps), cfg,
+                             positions=pos, is_local=False, causal=False)
+        return x + glu_mlp(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps),
+                           cfg.act)
+
     def _encode(self, params, frame_embeds):
         cfg = self.cfg
         x = torch.as_tensor(frame_embeds, device=self.device).to(cfg.adtype)
         pos = self._positions(x.shape[0], x.shape[1])
         for lp in params["enc_layers"]:
-            x = x + attn_forward(lp["attn"], rmsnorm(x, lp["norm1"],
-                                                     cfg.norm_eps), cfg,
-                                 positions=pos, is_local=False, causal=False)
-            x = x + glu_mlp(lp["mlp"], rmsnorm(x, lp["norm2"], cfg.norm_eps),
-                            cfg.act)
+            x = remat(cfg, self._enc_block, lp, x, pos, policy="nothing")
         return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
     def encode(self, frame_embeds):
@@ -137,28 +146,41 @@ class EncDecLM(nn.Module):
         return self._encode(self._cast(), frame_embeds)
 
     # -- decoder (teacher-forced / prefill-style) ------------------------
+    def _dec_block(self, lp, x, memory, pos, mpos):
+        cfg = self.cfg
+        x = x + attn_forward(lp["attn"], rmsnorm(x, lp["norm1"],
+                                                 cfg.norm_eps), cfg,
+                             positions=pos, is_local=False)
+        x = x + attn_forward(lp["cross"], rmsnorm(x, lp["norm2"],
+                                                  cfg.norm_eps), cfg,
+                             positions=pos, is_local=False, kv=memory,
+                             kv_positions=mpos, causal=False)
+        return x + glu_mlp(lp["mlp"], rmsnorm(x, lp["norm3"], cfg.norm_eps),
+                           cfg.act)
+
     def forward(self, tokens, frame_embeds):
         """tokens (B,S), frames (B,T,D) -> (logits (B,S,V) f32, 0.0)."""
         cfg = self.cfg
         params = self._cast()
         memory = self._encode(params, frame_embeds)
         tokens = self._tokens(tokens)
-        x = params["embed"][tokens].to(cfg.adtype)
+        x = F.embedding(tokens, params["embed"]).to(cfg.adtype)
         B, S = tokens.shape
         pos = self._positions(B, S)
         mpos = self._positions(B, memory.shape[1])
         for lp in params["dec_layers"]:
-            x = x + attn_forward(lp["attn"], rmsnorm(x, lp["norm1"],
-                                                     cfg.norm_eps), cfg,
-                                 positions=pos, is_local=False)
-            x = x + attn_forward(lp["cross"], rmsnorm(x, lp["norm2"],
-                                                      cfg.norm_eps), cfg,
-                                 positions=pos, is_local=False, kv=memory,
-                                 kv_positions=mpos, causal=False)
-            x = x + glu_mlp(lp["mlp"], rmsnorm(x, lp["norm3"], cfg.norm_eps),
-                            cfg.act)
+            x = remat(cfg, self._dec_block, lp, x, memory, pos, mpos,
+                      policy="nothing")
         return self._head(params, x), \
             torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(self, batch) -> torch.Tensor:
+        """batch: tokens (B,S), labels (B,S) (-1 = ignore), frame_embeds
+        (B,T,D).  Next-token CE over the decoder, a float32 0-d tensor."""
+        logits, _ = self.forward(batch["tokens"], batch["frame_embeds"])
+        s, n = cross_entropy(logits[:, :-1],
+                             self._tokens(batch["labels"])[:, 1:])
+        return s / torch.clamp(n, min=1.0)
 
     # -- decode ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -196,7 +218,7 @@ class EncDecLM(nn.Module):
         pos = cache["pos"]
         tokens = self._tokens(tokens)
         B = tokens.shape[0]
-        x = params["embed"][tokens].to(cfg.adtype)
+        x = F.embedding(tokens, params["embed"]).to(cfg.adtype)
         posb = pos.expand(B)
         T = cache["ck"].shape[2]
         ready = torch.ones((B, T), dtype=torch.bool, device=x.device)

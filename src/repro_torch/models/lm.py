@@ -25,18 +25,34 @@ dtype.
 The cache is the reference's: roped k and unroped v in the activation
 dtype, ``(L, B, max_len, KVH, D)``; the SSM's conv tail ``(L, B, K-1,
 conv_dim)`` and state ``(L, B, H, P, N)``; one scalar ``pos``.
-``forward`` returns the MoE aux loss summed over layers.  The training
-loss waits for the training slice.
+``forward`` returns the MoE aux loss summed over layers.
+
+Training: :meth:`CausalLM.loss` is the reference's next-token CE (labels
+``-1`` ignored, vlm's prefix positions cut off) plus ``0.01 * aux``; with
+``cfg.loss_chunk`` the head product and the CE run a sequence chunk at a
+time (:meth:`CausalLM._ce_chunked`), each chunk recomputed in the
+backward, so the ``(B, S, V)`` logits are never held.  With
+``cfg.remat`` each block runs under :func:`remat` (recomputed in the
+backward; ``remat_policy="dots"`` keeps its products).  Both apply only
+while autograd records: serving runs under ``torch.inference_mode()``
+and is unchanged.  The embedding is ``F.embedding``, whose backward on
+the card sorts the token ids and sums each id's rows without atomics,
+and the head's narrow-float product has its own backward
+(:func:`f32_product`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.radic import resolve_device
 
@@ -48,7 +64,8 @@ from .layers import Leaf, ParamTree, draw, glu_mlp, glu_spec, rmsnorm, rope
 from .moe import moe_forward, moe_spec
 from .ssm import init_ssm_cache, ssm_decode, ssm_forward, ssm_spec
 
-__all__ = ["CausalLM", "PORTED_FAMILIES", "f32_product"]
+__all__ = ["CausalLM", "PORTED_FAMILIES", "f32_product", "remat",
+           "cross_entropy"]
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
@@ -127,18 +144,79 @@ def _ssm_axes() -> dict:
             "out_proj": ("layers", "inner", "embed")}
 
 
+class _NarrowF32Product(torch.autograd.Function):
+    """``x @ w`` of bf16 or fp16 2-d operands written in float32 by
+    ``torch.mm``'s ``out_dtype``.  Its backward is what jax transposes a
+    ``preferred_element_type=float32`` product into: the float32
+    cotangent cast to the operands' dtype, then products in that dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w.T if ctx.needs_input_grad[0] else None
+        gw = x.T @ g if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with float32 output, as the reference's
     ``preferred_element_type``.  A bf16 or fp16 product on the card writes
     float32 straight from its float32 accumulator (``torch.mm``'s
     ``out_dtype``), so the weights are read once and never copied; on the
     CPU, and in float32, it takes float32 operands.  Both multiply the same
-    values (bf16 and fp16 are exact in float32)."""
+    values (bf16 and fp16 are exact in float32).  The card's narrow
+    product runs through :class:`_NarrowF32Product`, which also carries
+    its backward."""
     if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
+        out = _NarrowF32Product.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
+
+
+# the products jax's ``dots_with_no_batch_dims_saveable`` keeps: ``x @ w``
+# of an activation and a weight folds to a 2-d ``mm``; attention's
+# einsums, with batch dims, run as ``bmm`` and are recomputed
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(cfg: ModelConfig, fn, *args, policy: str | None = None):
+    """``fn(*args)``, recomputed in the backward when ``cfg.remat`` is set
+    and autograd records (``torch.utils.checkpoint``, non-reentrant): the
+    reference's ``jax.checkpoint`` of a block.  ``policy`` (default
+    ``cfg.remat_policy``): ``"nothing"`` saves only the inputs,
+    ``"dots"`` also the products without batch dims."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    policy = cfg.remat_policy if policy is None else policy
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=(
+            functools.partial(create_selective_checkpoint_contexts,
+                              _save_products)))
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def cross_entropy(logits: torch.Tensor, tgt: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of ``lse - logits[tgt]`` over the kept positions, their
+    count), both float32: the reference's masked CE before its division.
+    Labels below 0 are ignored.  ``F.cross_entropy``'s backward writes one
+    entry a row, with no scatter-add."""
+    tgt = tgt.masked_fill(tgt < 0, -1)
+    s = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                        tgt.reshape(-1), ignore_index=-1, reduction="sum")
+    return s, (tgt >= 0).sum().to(torch.float32)
 
 
 def model_device(device) -> torch.device:
@@ -302,7 +380,7 @@ class CausalLM(nn.Module):
 
     def _embed(self, params, tokens, prefix_embeds=None):
         cfg = self.cfg
-        x = params["embed"][tokens].to(cfg.adtype)
+        x = F.embedding(tokens, params["embed"]).to(cfg.adtype)
         if cfg.prefix_embeds:
             assert prefix_embeds is not None, "vlm needs prefix embeds"
             x = torch.cat([prefix_embeds.to(cfg.adtype), x], dim=1)
@@ -327,18 +405,84 @@ class CausalLM(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def forward(self, tokens, prefix_embeds=None):
-        """tokens (B,S) -> (logits (B, S(+P), V) f32, aux): ``aux`` the
-        MoE load-balancing loss summed over layers (0.0 without MoE)."""
+    def _trunk(self, tokens, prefix_embeds=None):
+        """(the cast params, the last block's output, the MoE aux loss
+        summed over layers), each block under :func:`remat`."""
         params = self._cast()
         x = self._embed(params, self._tokens(tokens), prefix_embeds)
         positions = self._positions(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp, fl in zip(params["layers"], self._local_flags()):
-            x, a = self._block(lp, x, positions, bool(fl))
+            x, a = remat(self.cfg, self._block, lp, x, positions, bool(fl))
             if a is not None:
                 aux = aux + a
+        return params, x, aux
+
+    def forward(self, tokens, prefix_embeds=None):
+        """tokens (B,S) -> (logits (B, S(+P), V) f32, aux): ``aux`` the
+        MoE load-balancing loss summed over layers (0.0 without MoE)."""
+        params, x, aux = self._trunk(tokens, prefix_embeds)
         return self._head(params, x), aux
+
+    def loss(self, batch) -> torch.Tensor:
+        """batch: tokens (B,S), labels (B,S) int (-1 = ignore) [+
+        prefix_embeds (B,P,D)].  Next-token CE + 0.01 * the MoE aux loss,
+        a float32 0-d tensor.
+
+        With ``cfg.loss_chunk > 0`` the (B,S,V) logits are never held:
+        the head product and the CE run per sequence chunk
+        (:meth:`_ce_chunked`)."""
+        cfg = self.cfg
+        labels = self._tokens(batch["labels"])
+        if cfg.loss_chunk:
+            params, x, aux = self._trunk(batch["tokens"],
+                                         batch.get("prefix_embeds"))
+            if cfg.prefix_embeds:
+                x = x[:, x.shape[1] - labels.shape[1]:]
+            x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+            ce = self._ce_chunked(params, x[:, :-1], labels[:, 1:])
+            return ce + 0.01 * aux
+        logits, aux = self.forward(batch["tokens"],
+                                   batch.get("prefix_embeds"))
+        if cfg.prefix_embeds:  # prefix positions carry no labels
+            logits = logits[:, logits.shape[1] - labels.shape[1]:]
+        s, n = cross_entropy(logits[:, :-1], labels[:, 1:])
+        return s / torch.clamp(n, min=1.0) + 0.01 * aux
+
+    def _ce_chunk(self, hq, tq, w):
+        """(CE sum, kept count) of one chunk: its logits by the head's
+        ``f32_product`` and softcap."""
+        logits = f32_product(hq, w)
+        if self.cfg.final_logit_softcap:
+            c = self.cfg.final_logit_softcap
+            logits = c * torch.tanh(logits / c)
+        return cross_entropy(logits, tq)
+
+    def _ce_chunked(self, params, h, tgt):
+        """CE over seq chunks of ``Q = min(loss_chunk, T)``; h (B,T,D) the
+        normed pre-head hidden, tgt (B,T).  The sequence is padded to a
+        multiple of Q with label -1; each chunk's logits are recomputed in
+        the backward (:func:`torch.utils.checkpoint.checkpoint`)."""
+        cfg = self.cfg
+        w = (params["embed"].T if cfg.tie_embeddings
+             else params["lm_head"]).to(h.dtype)
+        B, T, D = h.shape
+        Q = min(cfg.loss_chunk, T)
+        pad = (-T) % Q
+        if pad:
+            h = F.pad(h, (0, 0, 0, pad))
+            tgt = F.pad(tgt, (0, pad), value=-1)
+        s = torch.zeros((), dtype=torch.float32, device=h.device)
+        n = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(0, T + pad, Q):
+            hq, tq = h[:, c:c + Q], tgt[:, c:c + Q]
+            if torch.is_grad_enabled():
+                cs, cn = checkpoint(self._ce_chunk, hq, tq, w,
+                                    use_reentrant=False)
+            else:
+                cs, cn = self._ce_chunk(hq, tq, w)
+            s, n = s + cs, n + cn
+        return s / torch.clamp(n, min=1.0)
 
     # ------------------------------------------------------------------
     # inference: prefill + decode
@@ -423,7 +567,7 @@ class CausalLM(nn.Module):
         pos = cache["pos"]
         tokens = self._tokens(tokens)
         B = tokens.shape[0]
-        x = self._scale(params["embed"][tokens].to(cfg.adtype))
+        x = self._scale(F.embedding(tokens, params["embed"]).to(cfg.adtype))
         posb = pos.expand(B)
         in_place = cfg.cache_update == "dus"
         new = {name: t if (in_place and name in ("k", "v"))

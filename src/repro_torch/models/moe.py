@@ -19,7 +19,13 @@ Where torch and jnp differ, the port keeps the reference's numbers:
   scatter-add.  Every token owns exactly k consecutive slots of
   ``vals``, so it is summed here as k dense adds in slot order, from
   zero: no atomics, the same bits every call (and the order XLA's
-  serial scatter on the CPU adds them in).
+  serial scatter on the CPU adds them in);
+* the backwards of the scatter dispatch's two gathers add nothing in an
+  order-dependent way (autograd's would scatter-add, with atomics on a
+  CUDA tensor): :class:`_RepeatTokens` sums each token's k slot
+  gradients in slot order, as the combine does, and
+  :class:`_GatherSlots` writes each gathered gradient to its unique
+  ``(expert, slot)`` pair.
 """
 
 from __future__ import annotations
@@ -112,13 +118,58 @@ def _dispatch_onehot(p, x, gates, idx, cfg, C):
     return torch.einsum("gtec,gecd->gtd", gate_e, y)
 
 
+class _RepeatTokens(torch.autograd.Function):
+    """x (G, Tg, D) -> x[:, tok] (G, Tg·k, D), ``tok = repeat(arange(Tg),
+    k)``: each token's row k times.  The backward adds each token's k
+    slot gradients in slot order from zero (a reshape and k adds)."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.k = k
+        G, Tg, D = x.shape
+        return x[:, :, None].expand(G, Tg, k, D).reshape(G, Tg * k, D)
+
+    @staticmethod
+    def backward(ctx, g):
+        k = ctx.k
+        G, N, D = g.shape
+        g = g.reshape(G, N // k, k, D)
+        out = torch.zeros((G, N // k, D), dtype=g.dtype, device=g.device)
+        for j in range(k):
+            out = out + g[:, :, j]
+        return out, None
+
+
+class _GatherSlots(torch.autograd.Function):
+    """y (G, E, C, D) -> ypad[gidx, e, slot] (G, N, D), ``ypad`` y with a
+    zero overflow slot C.  The backward writes each row's gradient to its
+    ``(expert, slot)`` (a plain write: a kept pair is unique within its
+    group, and the overflow rows all land in slot C, which is cut off)."""
+
+    @staticmethod
+    def forward(ctx, y, gidx, e_flat, slot):
+        G, E, C, D = y.shape
+        ypad = torch.cat([y, torch.zeros((G, E, 1, D), dtype=y.dtype,
+                                         device=y.device)], dim=2)
+        ctx.save_for_backward(gidx, e_flat, slot)
+        ctx.shape = y.shape
+        return ypad[gidx, e_flat, slot]
+
+    @staticmethod
+    def backward(ctx, g):
+        gidx, e_flat, slot = ctx.saved_tensors
+        G, E, C, D = ctx.shape
+        gy = torch.zeros((G, E, C + 1, D), dtype=g.dtype, device=g.device)
+        gy[gidx, e_flat, slot] = g
+        return gy[:, :, :C], None, None, None
+
+
 def _dispatch_scatter(p, x, gates, idx, cfg, C):
     """x (G,Tg,D); grouped sort-free scatter dispatch."""
     G, Tg, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     N = Tg * k
     e_flat = idx.reshape(G, N)
-    tok = torch.arange(Tg, device=x.device).repeat_interleave(k)  # (N,)
     g_flat = gates.reshape(G, N).to(x.dtype)
     oh = F.one_hot(e_flat, E)                                # (G,N,E)
     pos = (torch.cumsum(oh, dim=1) * oh).sum(-1) - 1         # (G,N)
@@ -129,12 +180,10 @@ def _dispatch_scatter(p, x, gates, idx, cfg, C):
     # a plain (non-accumulating) write: a kept (expert, slot) pair is
     # unique within its group by the cumsum, and the writes that collide
     # all land in the overflow slot C, which is cut off below
-    buf[gidx, e_flat, slot] = x[:, tok]
+    buf[gidx, e_flat, slot] = _RepeatTokens.apply(x, k)
     y = _expert_glu(p, buf[:, :, :C], cfg)                   # (G,E,C,D)
-    ypad = torch.cat([y, torch.zeros((G, E, 1, D), dtype=y.dtype,
-                                     device=y.device)], dim=2)
-    vals = ypad[gidx, e_flat, slot] * (g_flat
-                                       * keep.to(x.dtype))[..., None]
+    vals = _GatherSlots.apply(y, gidx, e_flat, slot) * (
+        g_flat * keep.to(x.dtype))[..., None]
     # the scatter-add over tok = repeat(arange(Tg), k): token t's k slots
     # are vals[:, t*k : t*k + k], added in slot order from zero
     vals = vals.reshape(G, Tg, k, D)

@@ -1,7 +1,8 @@
 """Twin of ``tests/test_checkpoint.py`` for the port's checkpoint package
 (``repro_torch.checkpoint``) and the engine's plan store, on the CPU.
 
-Every reference test with a meaning in the port has its twin here: the
+Every reference test with a meaning in the port has its twin here
+(with ``tests/test_substrates.py``'s checkpoint legs): the
 three manager regressions (typed restore mismatches, the stale-tmp
 sweep, gc never deleting LATEST's target), bit identity, async overlap,
 the elastic restore (a reference process on two XLA devices saves, the
@@ -64,6 +65,47 @@ def _tree_equal(a, b) -> None:
             np.array(b))
         assert x.dtype == y.dtype and x.shape == y.shape
         assert torch.equal(x.cpu(), y.cpu())
+
+
+# ------------------------------------- the legs of test_substrates.py
+def test_checkpoint_roundtrip(tmp_path):
+    m = CheckpointManager(str(tmp_path))
+    tree = {"w": torch.arange(6.0).reshape(2, 3), "b": torch.zeros(3),
+            "nested": {"s": torch.tensor(3)}}
+    m.save(7, tree)
+    step, out = m.restore(tree)
+    assert step == 7
+    _tree_equal(tree, out)
+
+
+def test_checkpoint_keeps_last_and_latest(tmp_path):
+    m = CheckpointManager(str(tmp_path), keep=2)
+    tree = {"w": torch.ones(2)}
+    for s in (1, 2, 3):
+        m.save(s, {"w": tree["w"] * s})
+    assert m.latest_step() == 3
+    dirs = sorted(d for d in os.listdir(tmp_path) if d.startswith("step_"))
+    assert dirs == ["step_00000002", "step_00000003"]
+    step, out = m.restore(tree, step=2)
+    assert float(out["w"][0]) == 2.0
+
+
+def test_checkpoint_async_then_blocking_same_step(tmp_path):
+    m = CheckpointManager(str(tmp_path))
+    tree = {"w": torch.ones(128, 128)}
+    m.save_async(5, tree)
+    m.save(5, tree)  # must not collide with the in-flight async write
+    assert m.latest_step() == 5
+
+
+def test_checkpoint_crash_atomicity(tmp_path):
+    """A leftover tmp dir (simulated crash) never corrupts LATEST."""
+    m = CheckpointManager(str(tmp_path))
+    m.save(1, {"w": torch.ones(2)})
+    os.makedirs(os.path.join(str(tmp_path), ".tmp-step_00000002"))
+    assert m.latest_step() == 1
+    step, _ = m.restore({"w": torch.ones(2)})
+    assert step == 1
 
 
 # -------------------------------------------------- restore validation (fix 1)

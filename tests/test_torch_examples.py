@@ -1,11 +1,14 @@
-"""The port's examples (``examples/quickstart_torch.py`` and
-``examples/retrieval_torch.py``) on the CPU, held as
-``tests/test_examples.py`` holds the originals and to the reference's
-own numbers: the quickstart's four determinants within 1e-3 of
--1.1201943, the retrieval's batched-vs-loop parity within 1e-5 and its
-per-query verdicts and accuracy counts equal to the reference script's
-at seed 0."""
+"""The port's examples (``examples/quickstart_torch.py``,
+``examples/retrieval_torch.py`` and ``examples/train_lm_torch.py``) on
+the CPU, held as ``tests/test_examples.py`` holds the originals and to
+the reference's own numbers: the quickstart's four determinants within
+1e-3 of -1.1201943, the retrieval's batched-vs-loop parity within 1e-5
+and its per-query verdicts and accuracy counts equal to the reference
+script's at seed 0; the train example's ``OK`` lines at small flags, and
+its determinant-regularized probe head on the reference's draws within
+``rtol=1e-3`` of the reference's ``fit_head`` after 20 steps."""
 
+import ast
 import contextlib
 import importlib.util
 import io
@@ -95,3 +98,60 @@ def test_signature_matches_the_reference():
         np.testing.assert_allclose(
             batched, np.asarray(ref.signature(jnp.asarray(feats))),
             atol=1e-5)
+
+
+def test_train_example_smoke(tmp_path):
+    """The train example at small flags prints its two OK lines (the LM's
+    loss decreases; the determinant regularizer keeps the head full-rank
+    without wrecking the fit)."""
+    out = _run(_load_example("train_lm_torch.py").main, CPU + [
+        "--steps", "30", "--d-model", "64", "--layers", "1", "--vocab",
+        "256", "--batch", "4", "--seq", "32", "--ckpt", str(tmp_path)])
+    assert "OK: loss went from" in out, out
+    assert "OK: determinant-regularized head stays full-rank" in out, out
+    assert "probe head: mse" in out
+
+
+def test_train_example_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _load_example("train_lm_torch.py").main([])
+
+
+def _reference_fit_head():
+    """``fit_head`` as ``examples/train_lm.py`` defines it (the script
+    trains at import, so the function is taken from its source)."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.core import radic_det
+    tree = ast.parse((REPO / "examples" / "train_lm.py").read_text())
+    fn = next(node for node in tree.body if isinstance(node, ast.FunctionDef)
+              and node.name == "fit_head")
+    ns = {"jax": jax, "jnp": jnp, "radic_det": radic_det, "K_HEAD": 3,
+          "D_HEAD": 8}
+    exec(compile(ast.Module(body=[fn], type_ignores=[]), "train_lm.py",
+                 "exec"), ns)
+    return ns["fit_head"]
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.02])
+def test_fit_head_matches_the_reference(lam):
+    """The port's probe head on the reference's draws (its ``fit_head``'s
+    keys, with ``u`` and ``H0`` from the same key) lands within rtol=1e-3
+    of the reference's head after 20 steps, with the same mse and target
+    variance."""
+    jax = pytest.importorskip("jax")
+    ref_fit = _reference_fit_head()
+    k0, k1, k2 = jax.random.split(jax.random.PRNGKey(0), 3)
+    X = np.asarray(jax.random.normal(k0, (256, 8)))
+    u = np.asarray(jax.random.normal(k1, (8,)))
+    v = np.asarray(jax.random.normal(k2, (3,)))
+    H0 = np.asarray(0.1 * jax.random.normal(k1, (3, 8)))
+    want_H, want_mse, want_var = ref_fit(lam, 20)
+    port = _load_example("train_lm_torch.py")
+    H, mse, var = port.fit_head(lam, 20, data=(X, u, v, H0), device="cpu")
+    np.testing.assert_allclose(H.numpy(), np.asarray(want_H), rtol=1e-3,
+                               atol=1e-6)
+    np.testing.assert_allclose(mse, want_mse, rtol=1e-3)
+    np.testing.assert_allclose(var, want_var, rtol=1e-5)

@@ -1,7 +1,7 @@
-"""Import hygiene of the port: nothing under ``src/repro_torch`` and
-neither ``chip_smoke.py`` nor ``lm_precision.py`` imports jax or the JAX
-package ``repro``, and the port imports and computes with jax made
-unimportable."""
+"""Import hygiene of the port: nothing under ``src/repro_torch``, no
+``examples/*_torch.py`` and neither ``chip_smoke.py`` nor
+``lm_precision.py`` imports jax or the JAX package ``repro``, and the
+port imports, computes and trains with jax made unimportable."""
 
 import ast
 import os
@@ -13,6 +13,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
+    sorted((REPO / "examples").glob("*_torch.py")) + \
     [REPO / "chip_smoke.py", REPO / "lm_precision.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -69,6 +70,12 @@ def test_port_runs_with_jax_unimportable():
         "                      'cpu', '--batch', '1', '--prompt-len', '4',\n"
         "                      '--gen', '2'])\n"
         "    assert gen.shape == (1, 2)\n"
+        "from repro_torch.launch import train\n"
+        "import repro_torch.data, repro_torch.optim\n"
+        "losses = train.main(['--arch', 'llama3-8b', '--smoke', '--device',\n"
+        "                     'cpu', '--steps', '2', '--batch', '2',\n"
+        "                     '--seq', '8'])\n"
+        "assert len(losses) == 2\n"
         "from repro_torch.configs import radic_paper\n"
         "assert radic_paper.CONFIG.backend == 'cuda'\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"

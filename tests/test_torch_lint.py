@@ -45,6 +45,13 @@ def test_port_serving_tier_has_no_concurrency_findings(path):
     assert not found, "\n".join(f.render() for f in found)
 
 
+def test_passes_cover_the_train_driver():
+    """The train driver (its prefetcher and watchdog threads) is among
+    the files both passes run on."""
+    assert PORT / "launch" / "train.py" in FILES
+    assert PORT / "launch" / "steps.py" in FILES
+
+
 @pytest.mark.parametrize("path", LOCKED,
                          ids=[str(p.relative_to(REPO)) for p in LOCKED])
 def test_plan_store_and_engine_keep_lock_discipline(path):

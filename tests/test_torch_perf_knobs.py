@@ -3,7 +3,7 @@
 KV-chunked online softmax equals dense attention, with the window and
 the logit softcap too; on the hybrid, moe and audio families the two
 knobs together equal the reference under the same knobs.  The loss
-knobs wait for the training slice."""
+knobs (chunked CE, remat) are held in ``tests/test_torch_train.py``."""
 
 import numpy as np
 import pytest

@@ -1,6 +1,7 @@
 """Twin of ``tests/test_runtime.py`` for the port's runtime package
 (``repro_torch.runtime``): the same regression battery, run on the port,
-plus the elastic grid rule held to the reference's.
+plus the elastic grid rule held to the reference's, and the runtime
+legs of ``tests/test_substrates.py``.
 
 The reference's battery pins three fixes:
 
@@ -173,3 +174,64 @@ def test_choose_mesh_equals_reference():
                                        want_pods=pods)
                 assert (got.shape, got.axis_names, got.n_devices) == \
                     (want.shape, want.axis_names, want.n_devices)
+
+
+# ------------------------------------- the legs of test_substrates.py
+def test_choose_mesh_shrinks_on_failures():
+    full = choose_mesh(512, max_model=16, want_pods=2)
+    assert full.shape == (2, 16, 16)
+    # lose a pod
+    half = choose_mesh(256, max_model=16)
+    assert half.shape == (16, 16)
+    # lose arbitrary nodes: 509 -> largest pow2 = 256
+    broken = choose_mesh(509, max_model=16)
+    assert broken.n_devices == 256
+    tiny = choose_mesh(1)
+    assert tiny.shape == (1, 1)
+
+
+def test_watchdog_fires_on_stall():
+    fired = []
+    wd = Watchdog(timeout_s=0.1, on_stall=lambda: fired.append(1)).start()
+    time.sleep(0.3)
+    wd.stop()
+    assert fired
+
+
+def test_watchdog_quiet_when_beating():
+    wd = Watchdog(timeout_s=0.3, on_stall=lambda: None).start()
+    for _ in range(5):
+        wd.beat()
+        time.sleep(0.05)
+    wd.stop()
+    assert not wd.fired
+
+
+def test_step_timer_flags_outliers():
+    t = StepTimer(warmup=2)
+    for i in range(10):
+        assert not t.record(i, 1.0)
+    assert t.record(10, 5.0)
+    assert t.stragglers == [10]
+
+
+def test_run_grains_survives_failures_and_speculation():
+    vals = [float(i) for i in range(8)]
+    fns = [lambda v=v: v for v in vals]
+    # worker 0 dies on grains 1 and 3; speculation must recover
+    out = run_grains(fns, n_workers=3, fail_on={(0, 1), (0, 3), (1, 5)})
+    assert out == vals
+
+
+def test_run_grains_no_duplicates():
+    calls = []
+    lock = threading.Lock()
+
+    def mk(i):
+        def f():
+            with lock:
+                calls.append(i)
+            return i
+        return f
+    out = run_grains([mk(i) for i in range(16)], n_workers=4)
+    assert out == list(range(16))

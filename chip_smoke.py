@@ -66,8 +66,9 @@ per source, all at once) and runs these phases, each printing its lines:
    block kernel on a global copy); and one shard of phase 14's grid: K2
    at an eighth of (10, 34)'s ranks, K1 and K3 at (32, 8, 31) over a
    quarter of its ranks.  A profiler window counts toward a kernel's
-   time only if it recorded that kernel's own launches, and the phase
-   fails when fewer than three of eight windows did.
+   time only if it recorded that kernel's own launches; where fewer than
+   three of 24 windows did, the time is read from CUDA events around
+   calls queued behind a sleep, and the line says so.
    It runs after 10 to 14, so that every kernel it times has passed
    its checks, and before 15 and 16 (timed after them once, it saw no
    record of K3's B = 1 launches in six profiler windows; the script
@@ -222,6 +223,29 @@ per source, all at once) and runs these phases, each printing its lines:
    final ``H``), and at the example's width a run of 12 steps with a
    checkpoint resumed to 20 whose 8 losses equal an uninterrupted run's
    bit for bit; the phase's wall.
+19. placement and the dry run (``repro_torch.launch.dryrun``,
+   ``parallel.pipeline``, ``parallel.compress``): (a) the dry run of phase
+   18's cell on a one-device meta mesh (``make_production_mesh`` patched
+   and the cell added to ``SHAPES``, as the reference's own test patches
+   its module): its argument bytes against ``torch.cuda.memory_allocated``
+   after ``init_train_state`` and the batch (exact up to the allocator's
+   512 B a tensor), its argument + temp bytes against the real step's
+   ``max_memory_allocated`` (within 10 %), its counted FLOPs beside
+   ``train_hand_flops`` (not below it), the card's ``total_memory`` beside
+   ``dryrun.HBM_PER_CARD``; then ``python -m repro_torch.launch.dryrun`` on
+   llama3-8b train_4k (both meshes) and mamba2-1.3b long_500k in two
+   subprocesses, each exiting 0 with ``failures=0``; (c) phase 18's cell's
+   gradients from 8 batches, one a position of a (2, 4) ``("pod",
+   "data")`` grid repeating ``cuda:0``: ``psum_int8`` over both axes and
+   three steps of top-k error feedback (frac 0.01) on two bf16 matrices
+   and a float32 norm, bit for bit the same computation on the CPU, ms a
+   call beside the bytes at 3.35 TB/s; (b) llama3-8b at its published
+   width cut to 8 layers, 4 stages of 2 on a ``("stage",)`` grid
+   repeating ``cuda:0``, 8 microbatches of (1, 512): ``pipeline_apply``'s
+   forward bit for bit the same layers applied microbatch by microbatch
+   (bf16), its gradient (input and stage params, float32) within 1e-5
+   relative Frobenius error of the sequential run's, the walls of each
+   by CUDA events; the phase's wall.
 
 Every check holds ``|got - want| <= 2e-3 * max(1, |want|)`` (the
 reference's tolerance against its oracles), ``want`` from the plain
@@ -402,8 +426,10 @@ def device_ms(fn, reps: int = 10, windows: int = 3,
     0.02 ms for K1's 1 ms) as the kernel's time.  Of those, only the
     windows that saw the most event names count, so a lost reduction does
     not read low either.  It takes windows until ``windows`` of them
-    recorded the kernel, and fails when ``8 * windows`` did not (K3 wide
-    recorded in 2 of 8 windows once, so 8 were too few to draw from)."""
+    recorded the kernel, up to ``8 * windows`` windows.  Where fewer
+    than ``windows`` of those recorded it (K3's B = 1 entry was kept in 2
+    of 24 once), the time is ``queued_ms``'s instead, which needs no
+    profiler."""
     fn()
     torch.cuda.synchronize()
     per_call, kept, names, lost = [], [], [], 0
@@ -418,9 +444,14 @@ def device_ms(fn, reps: int = 10, windows: int = 3,
         names.append(len(by_name))
         if len(per_call) == windows:
             break
-    check(len(per_call) == windows,
-          f"the profiler recorded {kernel or 'no device event'} in only "
-          f"{len(per_call)} of {len(per_call) + lost} windows")
+    if len(per_call) < windows:
+        ms = queued_ms(fn, reps)
+        print(f"device_ms: the profiler recorded "
+              f"{kernel or 'no device event'} in only {len(per_call)} of "
+              f"{len(per_call) + lost} windows; CUDA events over {reps} "
+              f"calls queued behind a sleep instead: {ms:.4f} ms a call",
+              flush=True)
+        return ms
     if lost or any(k % reps for k in kept):
         print(f"device_ms: the profiler kept {kept} device events of "
               f"{reps} calls a window ({names} names); {lost} windows "
@@ -428,6 +459,39 @@ def device_ms(fn, reps: int = 10, windows: int = 3,
               f"those", flush=True)
     full = sorted(t for t, n in zip(per_call, names) if n == max(names))
     return full[len(full) // 2] / 1e3
+
+
+def queued_ms(fn, reps: int = 10) -> float:
+    """Device time per call, ms, without the profiler: CUDA events around
+    ``reps`` calls queued behind ``torch.cuda._sleep``, so that the device
+    runs them back to back and the host's share of each call is hidden.
+    It counts the gaps between launches that the profiler leaves out.  It
+    holds that the host queued every call before the sleep ended (the
+    start event not yet reached), doubling the sleep up to five times,
+    and fails when a call waits on the device."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(4 * host_s * 2e9) + 10 ** 7   # 4x the host's time at 2 GHz
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    check(False, f"the host did not queue {reps} calls ahead of a "
+                 f"{cycles // 2} cycle sleep: a call waits on the device")
 
 
 def kernel_name(key: str, m: int) -> str:
@@ -2866,23 +2930,30 @@ def grads_allclose(got: dict, want: dict, rtol: float, atol: float
     return worst
 
 
-def train_bound_ms(model, tokens: int) -> tuple[float, float, float, float]:
-    """(bound, its FLOP term, its bytes term, remat's recompute) of one
-    train step, ms.  The bound counts only the work a step needs: the
-    matmul params' 6 FLOPs a token and causal attention's lower half of
-    the S x S products forward and backward (6·B·H·S²·D a layer) at 989
-    TFLOP/s; and AdamW reading each param, gradient and moment once and
-    writing each param and moment once at 3.35 TB/s.  Remat's recompute
-    of the layers' forward (2 FLOPs a layer param a token, 2·B·H·S²·D a
-    layer) is returned apart, outside the bound."""
+def train_hand_flops(model, tokens: int) -> tuple[int, int]:
+    """(FLOPs a train step needs, remat's recompute) by hand: the matmul
+    params' 6 FLOPs a token and causal attention's lower half of the
+    S x S products forward and backward (6·B·H·S²·D a layer); remat
+    recomputes the layers' forward (2 FLOPs a layer param a token,
+    2·B·H·S²·D a layer)."""
     cfg = model.cfg
     layer_mm = sum(p.numel() for p in model.layers.parameters()
                    if p.ndim >= 2)
     head_mm = model.lm_head.numel()
     attn_fwd = 2 * TRAIN_B * cfg.n_heads * TRAIN_S ** 2 * cfg.head_dim \
         * cfg.n_layers
-    flops = 6 * (layer_mm + head_mm) * tokens + 3 * attn_fwd
-    recompute = 2 * layer_mm * tokens + attn_fwd
+    return (6 * (layer_mm + head_mm) * tokens + 3 * attn_fwd,
+            2 * layer_mm * tokens + attn_fwd)
+
+
+def train_bound_ms(model, tokens: int) -> tuple[float, float, float, float]:
+    """(bound, its FLOP term, its bytes term, remat's recompute) of one
+    train step, ms.  The bound counts only the work a step needs
+    (:func:`train_hand_flops`) at 989 TFLOP/s, and AdamW reading each
+    param, gradient and moment once and writing each param and moment
+    once at 3.35 TB/s.  Remat's recompute is returned apart, outside the
+    bound."""
+    flops, recompute = train_hand_flops(model, tokens)
     moment = 4                                   # float32 mu and nu
     nbytes = sum(p.numel() * (3 * p.element_size() + 4 * moment)
                  for p in model.parameters())
@@ -3526,6 +3597,308 @@ def phase_times(gen: torch.Generator, serve: dict, k2_big,
     return times
 
 
+# phase 19: the 8-layer pipeline and the (pod, data) grid of compression
+PIPE_LAYERS, PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 8, 4, 8, 512
+COMPRESS_GRID = (2, 4)
+COMPRESS_HELD = ADAMW_HELD[:3]     # two bf16 matrices and a float32 norm
+DRYRUN_CELLS = (("--arch", "llama3-8b", "--shape", "train_4k", "--mesh",
+                 "both"),
+                ("--arch", "mamba2-1.3b", "--shape", "long_500k", "--mesh",
+                 "single"))
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (a 2- or 4-byte float as an int)."""
+    ints = {2: torch.int16, 4: torch.int32}
+    return got.dtype == want.dtype and got.shape == want.shape and \
+        torch.equal(got.cpu().view(ints[got.element_size()]),
+                    want.cpu().view(ints[want.element_size()]))
+
+
+def placement_dry_run() -> dict:
+    """Phase 19 (a): the dry run of phase 18's cell (llama3-8b, 2 layers,
+    bf16, B = 2, S = 2,048, remat ``nothing``) on a one-device mesh,
+    held to the card: its argument bytes to the allocation after
+    ``init_train_state`` and the batch, its argument + temp bytes to the
+    real step's peak, its counted FLOPs to the hand count; then the dry
+    run's CLI on two production cells in subprocesses."""
+    import os
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.configs import shapes
+    from repro_torch.core import Mesh
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"dry run: the card's total_memory {total} B "
+          f"(dryrun.HBM_PER_CARD {dryrun.HBM_PER_CARD}, equal "
+          f"{total == dryrun.HBM_PER_CARD})", flush=True)
+    cell = shapes.Shape("phase18_train", "train", TRAIN_S, TRAIN_B)
+    one = Mesh(np.full((1, 1), torch.device("meta"), dtype=object),
+               ("data", "model"))
+    with mock.patch.object(dryrun, "make_production_mesh",
+                           lambda multi_pod=False: one), \
+            mock.patch.dict(shapes.SHAPES, {cell.name: cell}):
+        lowered, counted, meta = dryrun.lower_cell(
+            "llama3-8b", cell.name, False, {"n_layers": 2})
+    cfg = lowered.cfg
+    check(cfg.remat and cfg.remat_policy == "nothing"
+          and cfg.adtype == cfg.pdtype == torch.bfloat16,
+          f"not phase 18's cell: {cfg}")
+    predicted = lowered.argument_bytes()
+    n_args = sum(len(dryrun._leaves(t)) for t, _ in lowered.args.values())
+    opt_cfg = AdamWConfig()
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_S, global_batch=TRAIN_B))
+    free_card()
+    base = torch.cuda.memory_allocated()
+    model, opt = init_train_state(cfg, opt_cfg,
+                                  torch.Generator("cuda").manual_seed(0))
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch(0).items()}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    print(f"dry run (meta, {meta['t_run_s']} s) of llama3-8b 2 layers bf16 "
+          f"B={TRAIN_B} S={TRAIN_S} on a 1-device mesh: argument bytes "
+          f"{predicted} predicted, {held} allocated on the card after "
+          f"init_train_state and the batch ({held - predicted} B over, "
+          f"{n_args} tensors, at most 512 B each)", flush=True)
+    check(0 <= held - predicted < 512 * n_args,
+          f"argument bytes {predicted} predicted, {held} allocated")
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(model, opt_cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    opt, metrics = step(opt, batch)
+    ev[1].record()
+    ev[1].synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    want = predicted + counted.temp_bytes
+    r_peak = (want - peak) / peak
+    step_ms = ev[0].elapsed_time(ev[1])
+    print(f"dry run: argument + temp {want} B ({counted.temp_bytes} temp) "
+          f"predicted, the real step's peak {peak} B ({r_peak:+.2%}, tol "
+          f"10 %); the step {step_ms:.3f} ms, loss "
+          f"{metrics['loss'].item():.6f}", flush=True)
+    check(abs(r_peak) <= 0.10, f"predicted peak off by {r_peak:+.2%}")
+    hand, recompute = train_hand_flops(model, TRAIN_B * TRAIN_S)
+    print(f"dry run: counted FLOPs {counted.flops:.6e} ({counted.by_op}) "
+          f"against train_bound_ms's hand count {hand:.6e} (+ remat's "
+          f"recompute {recompute:.6e} = {hand + recompute:.6e})", flush=True)
+    check(counted.flops >= hand, "counted FLOPs below the hand count")
+    del model, opt, batch, step, metrics
+    free_card()
+
+    t_cli = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as out:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--outdir", out], cwd=ROOT, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for argv in DRYRUN_CELLS]
+        runs = [(p.communicate(timeout=300)[0], p.returncode) for p in procs]
+        records = len(os.listdir(out))
+    for argv, (text, rc) in zip(DRYRUN_CELLS, runs):
+        print(f"dry run CLI {' '.join(argv)}: exit {rc}", flush=True)
+        print(text.strip(), flush=True)
+        check(rc == 0 and "failures=0" in text, f"dryrun {argv} failed")
+    print(f"dry run CLI: {records} records in "
+          f"{time.perf_counter() - t_cli:.1f} s", flush=True)
+    check(records == 3, f"{records} dry-run records, not 3")
+    return {"args_predicted": predicted, "args_held": held,
+            "peak_predicted": want, "peak": peak, "r_peak": r_peak,
+            "flops_counted": counted.flops, "flops_hand": hand}
+
+
+def placement_pipeline() -> dict:
+    """Phase 19 (b): llama3-8b at its published width cut to 8 layers,
+    in 4 stages of 2 on a ``("stage",)`` grid repeating ``cuda:0``, 8
+    microbatches: the forward bit for bit the same layers applied
+    microbatch by microbatch (bf16), the gradient of the input and the
+    stage params within 1e-5 relative of the sequential run's (float32)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import reference_tree
+    from repro_torch.parallel import pipeline
+    from torch.utils import _pytree as pytree
+    cfg = get_config("llama3-8b").replace(n_layers=PIPE_LAYERS)
+    model = build_model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(1))
+    check(not model._local_flags().any(), "llama3-8b has local layers")
+    S, per = PIPE_STAGES, PIPE_LAYERS // PIPE_STAGES
+    mesh = Mesh(np.full((S,), "cuda:0", dtype=object), ("stage",))
+    positions = torch.arange(PIPE_SEQ, dtype=torch.int32,
+                             device="cuda").expand(1, PIPE_SEQ)
+
+    def stage_fn(p, h):
+        for i in range(per):
+            lp = pytree.tree_map(lambda q: q[i], p)
+            h, _ = model._block(lp, h, positions, False)
+        return h
+
+    def sequential(sp, x):
+        outs = []
+        for m in range(PIPE_MICRO):
+            h = x[m]
+            for s in range(S):
+                h = stage_fn(pytree.tree_map(lambda q: q[s], sp), h)
+            outs.append(h)
+        return torch.stack(outs)
+
+    def piped(sp, x):
+        return pipeline.pipeline_apply(stage_fn, sp, x, mesh=mesh,
+                                       stage_axis="stage", n_micro=PIPE_MICRO)
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    x = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.adtype)
+    with torch.no_grad():
+        layers = reference_tree(model, dict(model.named_parameters()))
+        sp = pytree.tree_map(lambda t: t.reshape(S, per, *t.shape[1:]),
+                             layers["layers"])
+        del layers
+        got, want = piped(sp, x), sequential(sp, x)
+        same = torch.equal(got, want)
+        pipe_ms = cuda_ms(lambda: piped(sp, x))
+        seq_ms = cuda_ms(lambda: sequential(sp, x))
+    n_params = sum(t.numel() for t in pytree.tree_leaves(sp))
+    print(f"pipeline llama3-8b {PIPE_LAYERS} layers ({n_params} params, "
+          f"bf16) in {S} stages of {per} on a ('stage',) grid of cuda:0, "
+          f"{PIPE_MICRO} microbatches of (1, {PIPE_SEQ}): forward bit for "
+          f"bit the sequential layers {same}; pipeline_apply {pipe_ms:.3f} "
+          f"ms, sequential {seq_ms:.3f} ms (CUDA events; bubble fraction "
+          f"{pipeline.bubble_fraction(S, PIPE_MICRO):.4f})", flush=True)
+    check(same, "the pipeline's forward differs from the sequential layers")
+    del got, want
+
+    # the gradient in float32: input and stage params
+    sp = pytree.tree_map(lambda t: t.float(), sp)
+    del model.layers
+    model.cfg = cfg.replace(param_dtype="float32", dtype="float32")
+    free_card()
+    x32 = x.float()
+    ct = torch.randn(x32.shape, generator=gen, device="cuda")
+    leaves = list(pytree.tree_leaves(sp))
+
+    def grads(fn):
+        for t in (x32, *leaves):
+            t.requires_grad_(True)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = torch.autograd.grad((fn(sp, x32) * ct).sum(), [x32, *leaves])
+        ev[1].record()
+        ev[1].synchronize()
+        for t in (x32, *leaves):
+            t.requires_grad_(False)
+        return out, ev[0].elapsed_time(ev[1])
+
+    g_pipe, pipe_bwd = grads(piped)
+    g_seq, seq_bwd = grads(sequential)
+    worst = max(rel_fro(g, w) for g, w in zip(g_pipe, g_seq))
+    print(f"pipeline gradient (float32, input and {len(leaves)} stacked "
+          f"stage leaves): worst relative Frobenius error against the "
+          f"sequential run {worst:.3e} (tol 1e-5); forward + backward "
+          f"{pipe_bwd:.3f} ms piped, {seq_bwd:.3f} ms sequential",
+          flush=True)
+    check(worst <= 1e-5, f"pipeline gradient off by {worst:.3e}")
+    del g_pipe, g_seq, sp, leaves, model
+    free_card()
+    return {"pipe_ms": pipe_ms, "seq_ms": seq_ms, "pipe_grad_ms": pipe_bwd,
+            "seq_grad_ms": seq_bwd, "pipe_grad_err": worst}
+
+
+def placement_compress() -> dict:
+    """Phase 19 (c): phase 18's cell's gradients from 8 batches, one a
+    position of a (2, 4) ``("pod", "data")`` grid repeating ``cuda:0``:
+    ``psum_int8`` over both axes and three steps of top-k error feedback
+    (frac 0.01) on two bf16 matrices and a float32 norm, bit for bit the
+    same computation on the CPU; ms per call beside the bytes each must
+    move at 3.35 TB/s."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import Mesh
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import build_model
+    from repro_torch.parallel import compress
+    cfg = get_config("llama3-8b").replace(n_layers=2)
+    model = build_model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(0))
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_S, global_batch=TRAIN_B))
+    n = COMPRESS_GRID[0] * COMPRESS_GRID[1]
+    trees = []
+    for r in range(n):
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in data.batch(1 + r).items()}
+        grads = value_and_grad(model, batch)[1]
+        trees.append({k: grads[k] for k in COMPRESS_HELD})
+        del grads
+    del model
+    free_card()
+    axes = ("pod", "data")
+    card = Mesh(np.full(COMPRESS_GRID, "cuda:0", dtype=object), axes)
+    host = Mesh(np.full(COMPRESS_GRID, "cpu", dtype=object), axes)
+    got = compress.psum_int8(trees, axes, mesh=card)
+    host_trees = [{k: t.cpu() for k, t in tree.items()} for tree in trees]
+    want = compress.psum_int8(host_trees, axes, mesh=host)
+    same = {k: same_bits(got[k], want[k]) for k in COMPRESS_HELD}
+    psum_ms = cuda_ms(lambda: compress.psum_int8(trees, axes, mesh=card))
+    leaves = trees[0]
+    nbytes = sum(t.numel() * t.element_size() * (n + 1)
+                 for t in leaves.values())
+    held = ", ".join(f"{k} {tuple(t.shape)} {t.dtype}"
+                     for k, t in leaves.items())
+    print(f"compress psum_int8 over a {COMPRESS_GRID} ('pod', 'data') grid "
+          f"of cuda:0, {n} gradient trees of llama3-8b 2 layers ({held}): "
+          f"bit for bit the CPU's {same}; {psum_ms:.3f} ms a call against "
+          f"{nbytes / PEAK_BYTES * 1e3:.3f} ms for its {nbytes} bytes (each "
+          f"replica's leaves read once, the sum written once) at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s", flush=True)
+    check(all(same.values()), f"psum_int8 differs from the CPU's: {same}")
+    mem = compress.init_error_feedback(leaves)
+    host_leaves = host_trees[0]
+    host_mem = compress.init_error_feedback(host_leaves)
+    steps = []
+    for _ in range(3):
+        sg, mem = compress.topk_with_error_feedback(leaves, mem, frac=0.01)
+        hsg, host_mem = compress.topk_with_error_feedback(
+            host_leaves, host_mem, frac=0.01)
+        steps.append(all(same_bits(sg[k], hsg[k])
+                         and same_bits(mem[k], host_mem[k])
+                         for k in COMPRESS_HELD))
+    topk_ms = cuda_ms(lambda: compress.topk_with_error_feedback(
+        leaves, mem, frac=0.01))
+    tbytes = sum(t.numel() * (2 * t.element_size() + 8)
+                 for t in leaves.values())
+    print(f"compress top-k error feedback (frac 0.01), 3 steps: bit for bit "
+          f"the CPU's {steps}; {topk_ms:.3f} ms a call against "
+          f"{tbytes / PEAK_BYTES * 1e3:.3f} ms for its {tbytes} bytes (the "
+          f"gradient and the float32 memory read, both written) at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s", flush=True)
+    check(all(steps), f"top-k differs from the CPU's: {steps}")
+    del trees, got, leaves, mem, sg
+    free_card()
+    return {"psum_ms": psum_ms, "psum_bytes": nbytes, "topk_ms": topk_ms,
+            "topk_bytes": tbytes}
+
+
+def phase_placement() -> dict:
+    """Phase 19: placement and the dry run (legs a, b and c)."""
+    print(card_line(), flush=True)
+    t0 = time.perf_counter()
+    out = placement_dry_run()
+    out |= placement_compress()
+    out |= placement_pipeline()
+    print(f"placement: phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3584,6 +3957,9 @@ def main() -> int:
     free_card()
     phase_train(errs, gen)
     done("18 training")
+    free_card()
+    phase_placement()
+    done("19 placement and the dry run")
     csrc = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     rows = []

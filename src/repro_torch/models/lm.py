@@ -168,12 +168,14 @@ def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with float32 output, as the reference's
     ``preferred_element_type``.  A bf16 or fp16 product on the card writes
     float32 straight from its float32 accumulator (``torch.mm``'s
-    ``out_dtype``), so the weights are read once and never copied; on the
-    CPU, and in float32, it takes float32 operands.  Both multiply the same
+    ``out_dtype``), so the weights are read once and never copied (on
+    ``meta`` too, so that the dry run sees the card's ops); on the CPU,
+    and in float32, it takes float32 operands.  Both multiply the same
     values (bf16 and fp16 are exact in float32).  The card's narrow
     product runs through :class:`_NarrowF32Product`, which also carries
     its backward."""
-    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+    if x.device.type in ("cuda", "meta") and \
+            x.dtype in (torch.bfloat16, torch.float16):
         out = _NarrowF32Product.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())

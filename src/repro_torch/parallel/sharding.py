@@ -11,6 +11,11 @@ Two rule tables per run: one for parameters (TP + FSDP placement) and one
 for activations (batch/seq placement).  :func:`spec_for` returns the
 entries of the reference's ``PartitionSpec`` as a tuple (``None``, an
 axis name, or a tuple of names per dim) and reads only ``mesh.shape``.
+A :class:`Placement` (a mesh and such a tuple) stands where the
+reference holds a ``NamedSharding``: :func:`sharding_for` and
+:func:`tree_param_shardings` return them, and ``shard_shape`` gives the
+shape one device of the mesh would hold.  Nothing is placed by them: the
+dry run reads the shard shapes.
 
 :func:`constraint` is the identity, in a ``use_rules`` context too: the
 port's mesh is a grid of devices driven by one controller and has no
@@ -30,6 +35,7 @@ from typing import Any, Mapping, Sequence
 import torch
 
 __all__ = ["ShardingRules", "use_rules", "constraint", "spec_for",
+           "Placement", "sharding_for", "tree_param_shardings",
            "ACT_RULES_SMALL", "ACT_RULES_LARGE", "PARAM_RULES_SMALL",
            "PARAM_RULES_LARGE", "current_rules"]
 
@@ -149,6 +155,60 @@ def spec_for(shape: Sequence[int], logical: Sequence[str | None],
         used.update(axes)
         parts.append(axes if len(axes) > 1 else (axes[0] if axes else None))
     return tuple(parts)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A tensor's placement on a mesh: the port's ``NamedSharding``.
+    ``spec`` holds one entry a dim, as :func:`spec_for` returns it."""
+    mesh: Any
+    spec: tuple
+
+    def shard_shape(self, global_shape: Sequence[int]) -> tuple[int, ...]:
+        """The shape one device holds: each dim divided by the product of
+        the sizes of the axes it is mapped to (``ValueError`` where that
+        does not divide it)."""
+        global_shape = tuple(global_shape)
+        if len(self.spec) > len(global_shape):
+            raise ValueError(f"spec {self.spec} for a {len(global_shape)}-d "
+                             "shape")
+        spec = self.spec + (None,) * (len(global_shape) - len(self.spec))
+        out = []
+        for dim, axes in zip(global_shape, spec):
+            n = math.prod(self.mesh.shape[a] for a in _normalize(axes))
+            if dim % n:
+                raise ValueError(f"dim {dim} of {global_shape} does not "
+                                 f"divide over {axes} ({n})")
+            out.append(dim // n)
+        return tuple(out)
+
+
+def sharding_for(shape, logical, *, params: bool = False,
+                 rules: ShardingRules | None = None) -> Placement | None:
+    """The placement of a tensor by its logical axis names under
+    ``rules`` (default: the active ones); ``None`` without rules."""
+    rules = rules if rules is not None else current_rules()
+    if rules is None:
+        return None
+    table = rules.params if params else rules.act
+    return Placement(rules.mesh, spec_for(shape, logical, table, rules.mesh))
+
+
+def tree_param_shardings(param_tree, logical_tree,
+                         rules: ShardingRules | None = None):
+    """A tree of :class:`Placement` for params (or their meta stand-ins):
+    ``param_tree``'s nesting of dicts, its leaves' logical axes read from
+    the same place in ``logical_tree`` (whose tuples are leaves)."""
+    rules = rules if rules is not None else current_rules()
+    assert rules is not None, "tree_param_shardings needs active rules"
+
+    def one(p, ax):
+        if isinstance(p, dict):
+            return {k: one(v, ax[k]) for k, v in p.items()}
+        return Placement(rules.mesh,
+                         spec_for(p.shape, ax, rules.params, rules.mesh))
+
+    return one(param_tree, logical_tree)
 
 
 def constraint(x: torch.Tensor, *logical: str | None) -> torch.Tensor:

@@ -299,6 +299,9 @@ def test_cold_worker_shielded_from_straggler_sweep(rng):
                   straggler_factor=2.0, straggler_warmup=4,
                   straggler_cooldown_s=0.0) as front:
         front.serve(mats, timeout=300)
+        # the serve's own sweeps may drain a worker slowed by a loaded
+        # host; only the seeded sweep below is under test
+        drained = front.snapshot()["front"]["stragglers_drained"]
         victim = front.alive_workers[0]
         with front._lock:  # seed measured EMAs deterministically
             for w in front._workers:
@@ -307,7 +310,7 @@ def test_cold_worker_shielded_from_straggler_sweep(rng):
         front.mark_cold_workers([victim])
         front._sweep_stragglers(time.monotonic())
         snap = front.snapshot()
-        assert snap["front"]["stragglers_drained"] == 0
+        assert snap["front"]["stragglers_drained"] == drained
         assert snap["front"]["cold_workers"] == [victim]
         assert victim in front.alive_workers
         front.mark_cold_workers([])  # warm now: ordinary health rules

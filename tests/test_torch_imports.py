@@ -1,7 +1,8 @@
 """Import hygiene of the port: nothing under ``src/repro_torch``, no
 ``examples/*_torch.py`` and neither ``chip_smoke.py`` nor
 ``lm_precision.py`` imports jax or the JAX package ``repro``, and the
-port imports, computes and trains with jax made unimportable."""
+port imports, computes, trains and places (the dry run's modules, the
+production mesh, the int8 round trip) with jax made unimportable."""
 
 import ast
 import os
@@ -76,6 +77,17 @@ def test_port_runs_with_jax_unimportable():
         "                     'cpu', '--steps', '2', '--batch', '2',\n"
         "                     '--seq', '8'])\n"
         "assert len(losses) == 2\n"
+        "import repro_torch.configs.shapes, repro_torch.launch.mesh\n"
+        "import repro_torch.parallel.pipeline\n"
+        "import repro_torch.parallel.compress, repro_torch.launch.dryrun\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "assert make_production_mesh(multi_pod=True).size == 512\n"
+        "from repro_torch.parallel.compress import psum_int8\n"
+        "g = {'w': torch.linspace(-1, 1, 9)}\n"
+        "assert psum_int8(g)['w'].shape == (9,)\n"
+        "from repro_torch.configs.shapes import param_count\n"
+        "from repro_torch.configs import get_config\n"
+        "assert param_count(get_config('llama3-8b')) == 8030261248\n"
         "from repro_torch.configs import radic_paper\n"
         "assert radic_paper.CONFIG.backend == 'cuda'\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"

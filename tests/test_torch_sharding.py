@@ -6,7 +6,11 @@ init), on stand-in meshes of shapes (16, 16) and (2, 16, 16), with the
 small and the large param tables and each arch's own rules.  The port's
 ``logical_axes`` and param shapes equal the reference's for every arch;
 ``constraint`` is the identity (the port has no sharded
-tensor type)."""
+tensor type).  On the meta production meshes (``make_production_mesh``),
+every param leaf's ``Placement.shard_shape`` from ``tree_param_shardings``
+equals the reference's ``NamedSharding.shard_shape`` (on a jax
+``AbstractMesh`` of the same shape), and ``sharding_for`` holds the
+reference's spec, or ``None`` without rules."""
 
 import types
 
@@ -140,3 +144,109 @@ def test_constraint_is_the_identity_under_rules():
         assert sharding.current_rules() is rules
         assert sharding.constraint(x, "batch", "embed") is x
     assert sharding.current_rules() is None
+
+
+# ------------------------------------------------- placements on the meshes
+PRODUCTION = {"single": False, "multi": True}
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _ref_param_shard_shapes(arch: str, multi_pod: bool) -> dict:
+    """The reference's ``tree_param_shardings`` on an abstract production
+    mesh: {leaf path: NamedSharding.shard_shape(leaf shape)}."""
+    from jax.sharding import AbstractMesh
+
+    from repro.configs.shapes import abstract_params
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    cfg = ref_registry.get_config(arch)
+    rules = ref_mesh.make_rules(cfg, AbstractMesh(shape, names))
+    params = abstract_params(cfg)
+    shardings = ref_sharding.tree_param_shardings(
+        params, ref_build(cfg).logical_axes(), rules)
+    placed = _flat(shardings)
+    return {k: placed[k].shard_shape(p.shape)
+            for k, p in _flat(params).items()}
+
+
+@pytest.mark.parametrize("arch", registry.list_archs())
+@pytest.mark.parametrize("mesh", PRODUCTION)
+def test_tree_param_shardings_equal_the_reference(arch, mesh):
+    """Every param leaf's shard shape on the production mesh equals the
+    reference's ``NamedSharding.shard_shape``."""
+    from repro_torch.configs.shapes import abstract_params
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg = registry.get_config(arch)
+    rules = make_rules(cfg, make_production_mesh(
+        multi_pod=PRODUCTION[mesh]))
+    params = abstract_params(cfg)
+    placed = sharding.tree_param_shardings(
+        params, build_model(cfg, device="meta").logical_axes(), rules)
+    got = {k: pl.shard_shape(_flat(params)[k].shape)
+           for k, pl in _flat(placed).items()}
+    assert all(isinstance(pl, sharding.Placement) and pl.mesh is rules.mesh
+               for pl in _flat(placed).values())
+    assert got == _ref_param_shard_shapes(arch, PRODUCTION[mesh])
+
+
+def test_production_mesh_is_meta_at_the_reference_shapes():
+    from repro_torch.launch.mesh import make_production_mesh
+    single = make_production_mesh()
+    multi = make_production_mesh(multi_pod=True)
+    assert dict(single.shape) == {"data": 16, "model": 16}
+    assert single.axis_names == ("data", "model")
+    assert dict(multi.shape) == {"pod": 2, "data": 16, "model": 16}
+    assert multi.axis_names == ("pod", "data", "model")
+    assert multi.size == 512
+    assert {str(d) for d in multi.devices.reshape(-1)} == {"meta"}
+    assert not torch.cuda.is_initialized()
+
+
+def test_sharding_for_without_rules_is_none():
+    assert sharding.current_rules() is None
+    assert sharding.sharding_for((8, 4), ("batch", None)) is None
+    assert sharding.sharding_for((8, 4), ("embed", "mlp"), params=True) \
+        is None
+
+
+def test_sharding_for_equals_the_reference_spec():
+    """With rules (passed or active), ``sharding_for`` holds the
+    reference's ``PartitionSpec`` on the mesh, and its shard shape the
+    reference's."""
+    from jax.sharding import AbstractMesh
+    cfg = registry.get_config("llama3-8b")
+    m = stand_in(MESHES["2x16x16"])
+    rules = make_rules(cfg, m)
+    ref_rules = ref_mesh.make_rules(
+        ref_registry.get_config("llama3-8b"),
+        AbstractMesh((2, 16, 16), ("pod", "data", "model")))
+    for shape, ax, params in [((256, 4096), ("batch", None), False),
+                              ((1, 1), ("batch", None), False),
+                              ((4096, 14336), ("embed", "mlp"), True),
+                              ((128256, 4096), ("vocab", "embed"), True)]:
+        got = sharding.sharding_for(shape, ax, params=params, rules=rules)
+        want = ref_sharding.sharding_for(shape, ax, params=params,
+                                         rules=ref_rules)
+        assert got.spec == tuple(want.spec) and got.mesh is m
+        assert got.shard_shape(shape) == want.shard_shape(shape)
+        with sharding.use_rules(rules):
+            assert sharding.sharding_for(shape, ax, params=params) == got
+
+
+def test_placement_shard_shape_refuses_what_does_not_divide():
+    m = stand_in(MESHES["2x16x16"])
+    pl = sharding.Placement(m, (("pod", "data"), "model"))
+    assert pl.shard_shape((64, 32)) == (2, 2)
+    assert pl.shard_shape((64, 32, 5)) == (2, 2, 5)
+    assert sharding.Placement(m, ()).shard_shape(()) == ()
+    with pytest.raises(ValueError):
+        pl.shard_shape((48, 32))

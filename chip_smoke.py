@@ -8,12 +8,13 @@ It builds the kernels from ``src/repro_torch/kernels/csrc/`` (one ``nvcc``
 per source, all at once) and runs these phases, each printing its lines:
 
 1. device: the card's name and power limit, torch/CUDA versions, build
-   time and the compiler's register/spill report (the warp kernels'
-   instances included), K3's rank tile for each m, the shared memory per
-   block of K1 and K3 at a few shapes (wide ones too), and static
-   SASS instruction counts by opcode of both kernels at m = 8 and of
-   their warp kernels at m = 20 (``cuobjdump``, where the toolkit has
-   it);
+   time and the compiler's register/spill report (the warp kernels' and
+   the prefix walk's instances included), K3's rank tile for each m, the
+   shared memory per block of K1 and K3 at a few shapes (wide ones too),
+   the wide kernels' shared memory and K1's route at every (m, n) held
+   to their Python twins, and static SASS instruction counts by opcode
+   of both kernels at m = 8 and of their warp kernels and the prefix
+   walk at m = 20 (``cuobjdump``, where the toolkit has it);
 2. K1 (``radic_batched_partial_cuda``) against its plain torch version in
    float64 on the card: shapes, batch sizes, partial rank ranges (shorter
    than one thread's run, straddling runs, tiles and blocks; n = m, m = 1,
@@ -59,8 +60,10 @@ per source, all at once) and runs these phases, each printing its lines:
    host's share left out) beside its bound, its plain version's wall time
    per call and, for K6, ``torch.linalg.det``'s device time; also K5 on
    every rank of C(32, 8), K6 at (2**20, 8, 8) in float32 and float64, and
-   the warp kernels: K1, K4 at (3, 20, 30), K2 at (20, 30), K3 at
-   (3, 20, 26) and K6 at (65536, m, m), m = 32, 17 and 24; K6 above
+   the wide kernels: K1, K4 at (3, 20, 30) and K2 at (20, 30) on the
+   prefix walk, K1 on the warp kernel at a shape routed to it
+   (``WARP_TIMED``), K3 at (3, 20, 26) and K6 at (65536, m, m), m = 32,
+   17 and 24; K6 above
    m = 32 at (16384, 33, 33) and (4096, 64, 64) in float32 (the warp
    kernel at two rows a lane) and at (256, 250, 250) in float64 (the
    block kernel on a global copy); and one shard of phase 14's grid: K2
@@ -73,13 +76,27 @@ per source, all at once) and runs these phases, each printing its lines:
    its checks, and before 15 and 16 (timed after them once, it saw no
    record of K3's B = 1 launches in six profiler windows; the script
    ends with a probe of that, printed, not held);
-10. the wide path (m >= 17): the warp kernels of K1, K2 and K4 against
+10. the wide path (m >= 17): K1, K2 and K4 (the prefix walk where
+   n - m reaches ``PREFIX_MIN_GAP``, 6, the warp kernel below) against
    float64 plain at (3, 17, 20), (2, 20, 22), (3, 24, 26), (1, 33, 33),
    (2, 32, 33) and ranges of (3, 20, 30), K4 == K1, the B = 1 entry ==
-   K1's slot, batch-slot independence and repeats bit for bit; K3 on the
+   K1's slot, batch-slot independence and repeats bit for bit; the
+   dispatch's edge (n = m, m + 1, the widest n below the threshold and
+   the narrowest at it, at m = 17, 20, 24 and 27, each launch counted on
+   the kernel it routes to), ranges of (3, 20, 30) that start mid-subtree
+   where the
+   successor changes the top of the prefix (its first column, and the
+   last column a restart re-eliminates), and a zero and a NaN column
+   taken only as a minor's last (exactly 0 and NaN where a range takes
+   it, as plain); the prefix walk over 300,000 ranks of (2, 20, 30)
+   (runs of 128) and K2 on it through ``radic_det`` at (20, 26); the
+   edge's (2, 27, 32) over 20,000 ranks whose sum cancels (``CANCEL``:
+   its error held to float32's roundings of the terms' magnitudes, its
+   relative error printed, ROADMAP queue 3); K3 on the
    same shapes and on stacks with a duplicate or a zero column at
    (3, 20, 24), each run twice; K1, K4 and K3 at every m = 17..33 with
-   n = m and m + 1 (but the table's (33, 34)); K6 at m = 17, 24, 32, 33,
+   n = m and m + 1, and K1 and K4 at m = 17..27 on the prefix walk's
+   threshold (n <= 33; but the table's (33, 34)); K6 at m = 17, 24, 32, 33,
    64 and 250 in float32 and float64 (one row a lane, two rows a lane,
    the block kernel with its matrix on a global copy), each m's launches
    counted for its row of the kernels line, singular matrices exactly 0,
@@ -259,6 +276,7 @@ prints no result.  It imports neither jax nor the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -354,6 +372,35 @@ def bound_ms(B: int, m: int, n: int, count: int) -> tuple[float, str]:
     minors, bytes of the stack, the table and the (B,) result."""
     return roofline(count * B * ge_flops(m),
                     4 * (B * m * n + (n + 1) * (m + 1) + B))
+
+
+def prefix_walk_flops(m: int, n: int) -> int:
+    """Float operations of the prefix walk (csrc/radic_prefix.cuh) over
+    all C(n, m) ranks of one matrix with every prefix eliminated once (no
+    run boundaries, no restarts): the step that eliminates a prefix's
+    last column c from its L live rows takes a reciprocal, L - 1
+    multipliers (a product and two multiply-adds each) and the pivots'
+    product, and updates the L - 1 rows of each column after c that a
+    combination can still take (a multiply-add each); a prefix of length
+    k ending at c is one of C(c, k - 1); each leaf adds its product, two
+    signs and the sum."""
+    from repro_torch.core.pascal import comb
+    total = 4 * comb(n, m)
+    for k in range(1, m):
+        rows = m - k   # L - 1
+        for c in range(k - 1, n - m + k):
+            total += comb(c, k - 1) * (2 * rows * (n - 1 - c) + 5 * rows + 2)
+    return total
+
+
+def walk_bound_ms(B: int, m: int, n: int) -> tuple[float, str]:
+    """K1's (K2's, K4's) least time over all C(n, m) ranks at m >= 17:
+    the float32 operations of the prefix walk (:func:`prefix_walk_flops`,
+    each prefix eliminated once) where they are fewer than the minors'
+    own (:func:`bound_ms`, each eliminated alone), and the same bytes."""
+    from repro_torch.core.pascal import comb
+    ops = min(prefix_walk_flops(m, n), comb(n, m) * ge_flops(m))
+    return roofline(B * ops, 4 * (B * m * n + (n + 1) * (m + 1) + B))
 
 
 def cuda_ms(fn, min_reps: int = 3, min_s: float = 0.2) -> float:
@@ -494,10 +541,13 @@ def queued_ms(fn, reps: int = 10) -> float:
                  f"{cycles // 2} cycle sleep: a call waits on the device")
 
 
-def kernel_name(key: str, m: int) -> str:
+def kernel_name(key: str, m: int, n: int | None = None) -> str:
     """The CUDA kernel that a ``kernels`` row (``K1`` .. ``K6``, with any
-    suffix) launches at ``m``: the register kernels up to 16, the warp
-    kernels above (K6's up to 64, its block kernel past that)."""
+    suffix) launches at ``(m, n)``: the register kernels up to 16, the
+    warp kernels above (K6's up to 64, its block kernel past that), and
+    for K1, K2 and K4 the prefix walk where the dispatch routes (m, n)
+    to it."""
+    from repro_torch.kernels.radic_fused import prefix_walk
     fam = key[:2]
     if fam == "K5":
         return "unrank_kernel"
@@ -507,7 +557,17 @@ def kernel_name(key: str, m: int) -> str:
     if fam == "K3":
         return "radic_grad_partial_kernel" if m <= 16 \
             else "radic_grad_warp_kernel"
+    if m > 16 and n is not None and prefix_walk(m, n):
+        return "radic_prefix_kernel"
     return "radic_partial_kernel" if m <= 16 else "radic_warp_partial_kernel"
+
+
+def wide_key(kernel: str, m: int, n: int) -> str:
+    """The error key of a K1/K2/K4 check at m >= 17: the kernel's own
+    where the prefix walk takes (m, n), ``K1 wide warp`` where the warp
+    kernel does (one kernel for the three entries)."""
+    from repro_torch.kernels.radic_fused import prefix_walk
+    return f"{kernel} wide" if prefix_walk(m, n) else "K1 wide warp"
 
 
 class Errors:
@@ -516,7 +576,8 @@ class Errors:
     def __init__(self):
         self.abs = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6",
                                      "K1 wide", "K2 wide", "K3 wide",
-                                     "K4 wide", "K6 wide", "K6 above 32",
+                                     "K4 wide", "K1 wide warp", "K6 wide",
+                                     "K6 above 32",
                                      "K1 mesh", "K2 mesh", "K3 mesh")}
 
     def hold(self, kernel: str, label: str, got, want,
@@ -611,15 +672,25 @@ def phase_device() -> None:
         check(lib.radic_grad_tile(m) == rf.warp_grad_tile(m) and
               lib.radic_grad_smem_bytes(16, m, 33) ==
               rf.warp_grad_smem_bytes(m) and
-              lib.radic_partial_smem_bytes(16, m, 33) ==
-              rf.warp_partial_smem_bytes(16, m, 33),
-              f"the warp kernels' shared memory at m = {m} differs from "
+              all(lib.radic_partial_smem_bytes(16, m, n) ==
+                  rf.wide_partial_smem_bytes(16, m, n)
+                  for n in range(m, 34)),
+              f"the wide kernels' shared memory at m = {m} differs from "
               "its Python twin")
-    print("warp kernels' shared memory per block at m = 17..33: K1 "
-          f"{[rf.warp_partial_smem_bytes(16, m, 33) for m in range(17, 34)]}"
-          f" B (16, m, 33), K3 "
+    routes = {(m, n): lib.radic_partial_route(m, n)
+              for m in range(1, 34) for n in range(m, 34)}
+    check(all(r == (0 if m <= 16 else 2 if rf.prefix_walk(m, n) else 1)
+              for (m, n), r in routes.items()),
+          "K1's route differs from radic_fused.prefix_walk")
+    print("wide kernels' shared memory per block at m = 17..33: K1 "
+          f"{[rf.warp_partial_smem_bytes(16, m, m) for m in range(17, 34)]}"
+          " B (16, m, m: the warp kernel), "
+          f"{[rf.prefix_smem_bytes(m, 33) for m in range(17, 28)]} B "
+          "(m, 33: the prefix walk), K3 "
           f"{[rf.warp_grad_smem_bytes(m) for m in range(17, 34)]} B; the "
-          "library's own counts equal")
+          "library's own counts equal at every n; K1's route (the prefix "
+          f"walk from n - m = {rf.PREFIX_MIN_GAP}) equals the twin's at "
+          "every (m, n)")
     for line in sass_counts(info["path"]):
         print(line)
 
@@ -627,21 +698,23 @@ def phase_device() -> None:
 SASS_OPS = ("FFMA", "FMUL", "FADD", "FSEL", "SEL", "MUFU", "LDS", "LDG",
             "STS", "BAR", "ATOMS", "SHFL", "REDUX")
 # K1 at m = 8 (the staged instance where the kernel has one) and K3 at m = 8,
-# and the warp kernels of both at m = 20 (their cross-lane traffic: SHFL
-# and REDUX against LDS and STS)
+# and the warp kernels of both and the prefix walk at m = 20 (their
+# cross-lane traffic: SHFL and REDUX against LDS and STS)
 SASS_KERNELS = {"K1 radic_partial_kernel<8>":
                 r"radic20radic_partial_kernelILi8E(Lb1E)?E",
                 "K3 radic_grad_partial_kernel<8,T>":
                 r"radic25radic_grad_partial_kernelILi8ELi\d+EE",
                 "K1 wide radic_warp_partial_kernel<20>":
                 r"radic25radic_warp_partial_kernelILi20EE",
+                "K1 wide radic_prefix_kernel<20>":
+                r"radic19radic_prefix_kernelILi20EE",
                 "K3 wide radic_grad_warp_kernel<20>":
                 r"radic22radic_grad_warp_kernelILi20EE"}
 
 
 def sass_counts(lib_path: str) -> list[str]:
     """Static SASS instruction counts of K1's and K3's kernels at m = 8
-    and of their warp kernels at m = 20, by opcode, from ``cuobjdump
+    and of their wide kernels at m = 20, by opcode, from ``cuobjdump
     -sass`` of the built library (the evidence the card gives without
     ``ncu``); a line saying so where the toolkit has no ``cuobjdump``."""
     import re
@@ -916,7 +989,8 @@ def serve_trace(extra: tuple[str, ...] = (),
     kernels = []
     for label, name in [("K1", "radic_partial_kernel"),
                         ("K3", "radic_grad_partial_kernel"),
-                        ("K1 wide", "radic_warp_partial_kernel"),
+                        ("K1 wide", "radic_prefix_kernel"),
+                        ("K1 wide warp", "radic_warp_partial_kernel"),
                         ("K3 wide", "radic_grad_warp_kernel")]:
         evs = [e for e in dev if name in e.name]
         if evs:
@@ -1356,11 +1430,13 @@ def phase_wide(errs: Errors, gen: torch.Generator) -> dict:
         label = f"({B},{m},{n}) ranks [{q0},{q0 + cnt})"
         got = ops.radic_det_batched_cuda(As, q0, cnt)
         torch.cuda.synchronize()
-        errs.hold("K1 wide", label, got, plain64(As, q0, cnt))
+        key = wide_key("K1", m, n)
+        errs.hold(key, label, got, plain64(As, q0, cnt))
         four = ops.radic_det_batched_cuda_bygrid(As, q0, cnt)
         check(torch.equal(four, got), f"K4 differs from K1 on {label}")
-        errs.abs["K4 wide"] = max(errs.abs["K4 wide"],
-                                  errs.abs["K1 wide"])
+        if key == "K1 wide":
+            errs.abs["K4 wide"] = max(errs.abs["K4 wide"],
+                                      errs.abs["K1 wide"])
         one = ops.radic_det_cuda(As[B - 1].clone(), q0, cnt)
         check(torch.equal(one, got[B - 1]),
               f"K2 differs from K1 at B = 1 on {label}")
@@ -1374,19 +1450,24 @@ def phase_wide(errs: Errors, gen: torch.Generator) -> dict:
     check(torch.equal(ops.radic_det_batched_cuda(As[37:38].clone())[0],
                       first[37]),
           "wide K1 slot 37 of 64 differs from the matrix alone")
-    # the scalar path (radic_det -> K2) on a wide matrix
+    # the scalar path (radic_det -> K2) on a wide matrix the warp kernel
+    # takes (phase_wide_prefix: one the prefix walk takes)
     A = torch.randn(20, 24, device="cuda", generator=gen)
     before = k2.wide_launches
     got = radic_det(A, backend="cuda")
     check(k2.wide_launches == before + 1, "radic_det did not launch K2 wide")
-    errs.hold("K2 wide", "(20,24) through radic_det", got,
+    errs.hold(wide_key("K2", 20, 24), "(20,24) through radic_det", got,
               plain64(A[None], 0, comb(24, 20))[0])
-    launches = {"K1 wide": k1.wide_launches, "K2 wide": k2.wide_launches,
-                "K4 wide": k4.wide_launches}
-    print(f"wide forward launches: {launches}; slot 37/64 vs alone and "
-          "repeat: bit-identical")
-    check(all(v > 0 for v in launches.values()), "a wide entry did not "
-          "launch its warp kernel")
+    phase_wide_prefix(errs, gen, plain64)
+    launches = {"K1 wide": k1.prefix_launches, "K2 wide": k2.prefix_launches,
+                "K4 wide": k4.prefix_launches}
+    warp = {f"{k.__name__}": k.wide_launches - k.prefix_launches
+            for k in (k1, k2, k4)}
+    print(f"wide forward launches: prefix walk {launches}, warp kernel "
+          f"{warp}; slot 37/64 vs alone and repeat: bit-identical")
+    check(all(v > 0 for v in launches.values()) and warp[k1.__name__] > 0,
+          "a wide entry did not launch the prefix walk, or K1 the warp "
+          "kernel")
 
     # K3 on the same shapes, partial ranges of (3, 20, 30) (fewer ranks:
     # the float64 pullback is costly), and stacks with a duplicate or a
@@ -1502,33 +1583,236 @@ def phase_wide(errs: Errors, gen: torch.Generator) -> dict:
     return launches
 
 
-def phase_wide_every_m(errs: Errors, gen: torch.Generator, plain64,
-                       grad64) -> None:
-    """K1 (with K4 == K1) and K3 at every m of the warp kernels, n = m and
-    m + 1, against float64 plain (K3 reads U's and L's rows in 16-byte
-    groups, the last of which ends m mod 4 columns in; m = 33 keeps two
-    rows in lane 0); (33, 34) is refused by the int32 table in both
-    packages."""
+# K1's dispatch edge: n = m, m + 1 and the widest n below the threshold
+# (the warp kernel), the narrowest at it (the prefix walk), at these m
+PREFIX_EDGE_M = (17, 20, 24, 27)
+
+
+def prefix_edge_n(m: int) -> int:
+    """The narrowest n the prefix walk takes at m, or 34 where no n <= 33
+    does."""
+    from repro_torch.kernels.radic_fused import prefix_walk
+    return next((n for n in range(m, 34) if prefix_walk(m, n)), 34)
+
+
+def edge_range(m: int, n: int) -> tuple[int, int]:
+    """All of C(n, m) where it is short, else 2,000 ranks from a third of
+    the way in (the route depends on (m, n) alone; longer ranges:
+    ``LONG_WALK`` and ``CANCEL``)."""
+    from repro_torch.core.pascal import comb
+    total = comb(n, m)
+    return (0, total) if total <= 50_000 else (total // 3, 2_000)
+
+
+# A stack, shape and rank count from a third of the way in whose sum
+# cancelled far below its terms in one run (ROADMAP queue 3): the edge
+# loop's (2, 27, 32) over 20,000 ranks
+CANCEL = (27, 32, 20_000)
+# The prefix walk over a range long enough for runs of 128 ranks
+# (prefix_run: 64 from 64 * 2048 ranks): (2, 20, 30), 300,000 ranks
+LONG_WALK = (2, 20, 30, 300_000)
+
+
+def abs_terms64(As: torch.Tensor, q0: int, cnt: int) -> torch.Tensor:
+    """Σ |sign(B_q)·det(A_b[:, B_q])| over the ranks [q0, q0 + cnt) of
+    each matrix of ``As (B, m, n)``, in float64: the scale of the sum's
+    terms, against which float32's rounding is measured."""
+    from repro_torch.core.engine import rank_table
+    from repro_torch.core.unrank import unrank_torch
+    B, m, n = As.shape
+    table = rank_table(n, m, device=As.device)
+    X = As.double().transpose(1, 2)
+    acc = torch.zeros(B, dtype=torch.float64, device=As.device)
+    chunk = max(1, (1 << 22) // (B * m * m))
+    for base in range(0, cnt, chunk):
+        qs = q0 + base + torch.arange(min(chunk, cnt - base),
+                                      device=As.device)
+        combos = unrank_torch(qs, n, m, table)
+        acc += torch.linalg.det(X[:, combos - 1]).abs().sum(1)
+    return acc
+
+
+def hold_cancelling(errs: Errors, As: torch.Tensor, plain64) -> None:
+    """K1 over ``CANCEL``'s 20,000 ranks of its stack: its error relative
+    to the sum is printed beside TOL, not held (in one run the sum was
+    5e5 times smaller than its terms, and float32's error, 2e10 on minors
+    of 1e14, put it at 5.0e-3); the error is held to (m + log2(count))
+    float32 roundings (2^-24) of Σ|terms| in float64, and printed beside
+    plain float32's on the same inputs."""
+    from repro_torch.core.engine import rank_table
     from repro_torch.core.pascal import comb
     from repro_torch.kernels import ops
+    from repro_torch.kernels.radic_fused import radic_batched_partial_plain
+    B, m, n = As.shape
+    q0, cnt = comb(n, m) // 3, CANCEL[2]
+    got = ops.radic_det_batched_cuda(As, q0, cnt).double()
+    want = plain64(As, q0, cnt)
+    f32 = radic_batched_partial_plain(As, rank_table(n, m, device="cuda"),
+                                      q0, cnt).double()
+    mag = abs_terms64(As, q0, cnt)
+    err, err32 = (got - want).abs(), (f32 - want).abs()
+    limit = (m + math.log2(cnt)) * 2.0 ** -24
+    key = wide_key("K1", m, n)
+    errs.abs[key] = max(errs.abs[key], err.max().item())
+    print(f"{key} cancelling ({B},{m},{n}) ranks [{q0},{q0 + cnt}): "
+          f"|sum| / Σ|terms| {(want.abs() / mag).tolist()}; kernel "
+          f"rel_err={rel_err(got, want):.3e} (TOL {TOL:g}, not held: "
+          f"ROADMAP queue 3), error / Σ|terms| {(err / mag).tolist()} "
+          f"(limit {limit:.3e}); plain float32 rel_err="
+          f"{rel_err(f32, want):.3e}, error / Σ|terms| "
+          f"{(err32 / mag).tolist()}", flush=True)
+    check(bool((err <= limit * mag).all()),
+          f"{key} cancelling ({B},{m},{n}): error / Σ|terms| "
+          f"{(err / mag).tolist()} > {limit:.3e}")
 
+
+def phase_wide_prefix(errs: Errors, gen: torch.Generator, plain64) -> None:
+    """The prefix walk against float64 plain: each side of its dispatch
+    edge (the warp kernel one below the threshold, the prefix walk at
+    it), each launch counted on the kernel it routes to; ranges of
+    (3, 20, 30) that start mid-subtree and whose successor changes the
+    top of the prefix (its first column, and the last column a restart
+    eliminates again) inside a run; a zero and a NaN column taken only as
+    a minor's last (column n - 1): exactly 0 and NaN where a range takes
+    it, as plain, and within ``TOL`` where it does not; ``CANCEL``
+    (:func:`hold_cancelling`); ``LONG_WALK``'s runs of 128 ranks; and K2
+    on the prefix walk through ``radic_det`` at (20, 26)."""
+    from repro_torch.core import radic_det
+    from repro_torch.core.pascal import comb
+    from repro_torch.core.unrank import rank_py
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import radic_fused as rf
+    k1 = rf.radic_batched_partial_cuda
+
+    edge = []
+    for m in PREFIX_EDGE_M:
+        edge_n = prefix_edge_n(m)
+        for n in sorted({m, m + 1, edge_n - 1, edge_n}):
+            if n > 33:
+                continue
+            As = torch.randn(2, m, n, device="cuda", generator=gen)
+            q0, cnt = edge_range(m, n)
+            before = (k1.wide_launches, k1.prefix_launches)
+            got = ops.radic_det_batched_cuda(As, q0, cnt)
+            torch.cuda.synchronize()
+            routed = (k1.wide_launches - before[0],
+                      k1.prefix_launches - before[1])
+            check(routed == (1, int(n == edge_n)),
+                  f"K1 (2,{m},{n}): {routed} (wide, prefix) launches")
+            errs.hold(wide_key("K1", m, n),
+                      f"edge (2,{m},{n}) ranks [{q0},{q0 + cnt})", got,
+                      plain64(As, q0, cnt))
+            check(torch.equal(ops.radic_det_batched_cuda_bygrid(As, q0, cnt),
+                              got),
+                  f"K4 differs from K1 at the edge (2,{m},{n})")
+            edge.append((m, n, "prefix" if routed[1] else "warp"))
+            if (m, n) == CANCEL[:2]:
+                hold_cancelling(errs, As, plain64)
+    print(f"prefix walk: the dispatch edge {edge}")
+
+    B, m, n = 3, 20, 30
+    K0 = m - min(rf.PREFIX_DEEP, m - 1)
+    top = comb(n - 1, m - 1)   # the first rank whose first column is 1
+    # the first rank whose column K0 - 1 moves (1-indexed (1..K0-1, K0+1,
+    # ...)): a restart inside a run
+    restart = rank_py((*range(1, K0), *range(K0 + 1, m + 2)), n, m)
+    big = torch.randn(B, m, n, device="cuda", generator=gen)
+    for q0, cnt in ((top - 100, 300), (top - 5000, 20_000),
+                    (restart - 37, 1000)):
+        label = f"({B},{m},{n}) ranks [{q0},{q0 + cnt}) mid-subtree"
+        got = ops.radic_det_batched_cuda(big, q0, cnt)
+        torch.cuda.synchronize()
+        errs.hold("K1 wide", label, got, plain64(big, q0, cnt))
+        check(torch.equal(ops.radic_det_batched_cuda_bygrid(big, q0, cnt),
+                          got), f"K4 differs from K1 on {label}")
+        check(torch.equal(ops.radic_det_cuda(big[B - 1].clone(), q0, cnt),
+                          got[B - 1]),
+              f"K2 differs from K1 at B = 1 on {label}")
+
+    B, m, n = 3, 20, 24
+    total = comb(n, m)
+    As = torch.randn(B, m, n, device="cuda", generator=gen)
+    As[1, :, n - 1] = 0.0
+    As[2, :, n - 1] = float("nan")
+    # ranks [0, n - m) are (0..m-2, j), j < n - 1; rank n - m and the last
+    # take column n - 1
+    for q0, cnt in ((0, n - m), (n - m, 1), (total - 1, 1), (0, total)):
+        label = f"({B},{m},{n}) zero/NaN last column ranks [{q0},{q0 + cnt})"
+        got = ops.radic_det_batched_cuda(As, q0, cnt)
+        torch.cuda.synchronize()
+        want = plain64(As, q0, cnt)
+        takes = q0 + cnt > n - m
+        check(torch.equal(torch.isnan(got), torch.isnan(want)) and
+              bool(torch.isnan(got[2])) == takes,
+              f"K1 {label}: NaN where plain has none, or none where it has")
+        if cnt == 1 and takes:
+            check(float(got[1]) == 0.0,
+                  f"K1 {label}: a zero column gives {float(got[1])}, not 0")
+        keep = slice(0, 2) if takes else slice(0, 3)
+        errs.hold("K1 wide", label, got[keep], want[keep])
+    print("prefix walk: mid-subtree ranges across a change of the first "
+          f"column (rank {top}) and of column {K0 - 1} (rank {restart}, a "
+          "restart), zero and NaN last columns: as plain")
+
+    # runs longer than 32 ranks, and K2 on the walk through radic_det
+    B, m, n, cnt = LONG_WALK
+    As = torch.randn(B, m, n, device="cuda", generator=gen)
+    q0 = comb(n, m) // 3
+    label = (f"({B},{m},{n}) ranks [{q0},{q0 + cnt}), runs of "
+             f"{rf.prefix_run(cnt)}")
+    got = ops.radic_det_batched_cuda(As, q0, cnt)
+    torch.cuda.synchronize()
+    errs.hold("K1 wide", label, got, plain64(As, q0, cnt))
+    check(torch.equal(ops.radic_det_batched_cuda_bygrid(As, q0, cnt), got),
+          f"K4 differs from K1 on {label}")
+    check(torch.equal(ops.radic_det_cuda(As[B - 1].clone(), q0, cnt),
+                      got[B - 1]), f"K2 differs from K1 at B = 1 on {label}")
+    k2 = rf.radic_partial_cuda
+    A = torch.randn(20, 26, device="cuda", generator=gen)
+    before = k2.prefix_launches
+    got = radic_det(A, backend="cuda")
+    check(k2.prefix_launches == before + 1,
+          "radic_det did not launch K2 on the prefix walk at (20, 26)")
+    errs.hold("K2 wide", "(20,26) through radic_det", got,
+              plain64(A[None], 0, comb(26, 20))[0])
+
+
+def phase_wide_every_m(errs: Errors, gen: torch.Generator, plain64,
+                       grad64) -> None:
+    """K1 (with K4 == K1) at every m of the wide kernels, n = m and m + 1
+    (the warp kernel) and the narrowest n the prefix walk takes (m <= 27;
+    2,000 of its ranks), and K3 at n = m and m + 1, against float64 plain
+    (K3 reads U's and L's rows in 16-byte groups, the last of which ends
+    m mod 4 columns in; m = 33 keeps two rows in lane 0); (33, 34) is
+    refused by the int32 table in both packages."""
+    from repro_torch.core.pascal import comb
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.radic_fused import prefix_walk
+
+    walked = []
     for m in range(17, 34):
-        for n in (m, m + 1):
-            if (m, n) == (33, 34):
+        for n in sorted({m, m + 1, prefix_edge_n(m)}):
+            if n > 33 or (m, n) == (33, 34):
                 continue
             As = torch.randn(2, m, n, device="cuda", generator=gen)
             cts = torch.tensor([1.5, -0.75], device="cuda")
-            label = f"every m (2,{m},{n})"
-            got = ops.radic_det_batched_cuda(As)
+            q0, cnt = edge_range(m, n)
+            label = f"every m (2,{m},{n}) ranks [{q0},{q0 + cnt})"
+            got = ops.radic_det_batched_cuda(As, q0, cnt)
             torch.cuda.synchronize()
-            errs.hold("K1 wide", label, got, plain64(As, 0, comb(n, m)))
-            check(torch.equal(ops.radic_det_batched_cuda_bygrid(As), got),
-                  f"K4 differs from K1 on {label}")
+            errs.hold(wide_key("K1", m, n), label, got, plain64(As, q0, cnt))
+            check(torch.equal(ops.radic_det_batched_cuda_bygrid(As, q0, cnt),
+                              got), f"K4 differs from K1 on {label}")
+            walked += [m] if prefix_walk(m, n) else []
+            if n > m + 1:
+                continue
             g = ops.radic_det_batched_grad_cuda(As, cts)
             torch.cuda.synchronize()
             errs.hold("K3 wide", label, g, grad64(As, cts, 0, comb(n, m)))
-    print("wide every m: K1, K4 and K3 at m = 17..33, n = m and m + 1 "
-          "(but (33, 34)), against float64 plain")
+    check(walked == list(range(17, 28)), f"the prefix walk took m = {walked}")
+    print("wide every m: K1 and K4 at m = 17..33, n = m and m + 1 (the "
+          "warp kernel) and at m = 17..27 on the prefix walk's narrowest n; "
+          "K3 at n = m and m + 1 (but (33, 34)); against float64 plain")
 
 
 def phase_wide_nan(errs: Errors, gen: torch.Generator, plain64,
@@ -1656,14 +1940,18 @@ def phase_wide_serve() -> dict:
     t0 = time.perf_counter()
     dets, stats = det_serve.main([*WIDE_SERVE_ARGS, "--verify"])
     wall = time.perf_counter() - t0
+    warp = k1.wide_launches - k1.prefix_launches
     print(f"wide serve: dispatches={stats['dispatches']} K1 launches="
-          f"{k1.launches} (warp kernel {k1.wide_launches}), ranks "
-          f"{stats['ranks']}, wall {wall:.3f}s with --verify")
-    check(k1.launches == stats["dispatches"] and k1.wide_launches > 0,
-          "wide serve: K1 launches != dispatches, or no warp launch")
+          f"{k1.launches} (prefix walk {k1.prefix_launches}, warp kernel "
+          f"{warp}), ranks {stats['ranks']}, wall {wall:.3f}s with "
+          "--verify")
+    check(k1.launches == stats["dispatches"] and k1.prefix_launches > 0
+          and warp > 0, "wide serve: K1 launches != dispatches, or a wide "
+          "kernel not launched")
     check(stats["completed"] == 256 and all(d is not None for d in dets),
           "wide serving left a request unanswered")
-    out = {"K1 wide": k1.wide_launches, "stats": stats}
+    out = {"K1 wide": k1.prefix_launches, "K1 wide warp": warp,
+           "stats": stats}
 
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -3400,22 +3688,31 @@ def phase_times(gen: torch.Generator, serve: dict, k2_big,
 
     times = {}
 
-    def record(kernel, label, shape, call, plain, bound, library=None):
+    def record(kernel, label, shape, call, plain, bound, library=None,
+               minor_bound=None):
         """``ms`` (and ``library_ms``) is the device time of one call,
         from the profiler; the call's wall time, host included, is
-        printed beside it.  ``plain`` is the plain version's wall time."""
-        ms = device_ms(call, kernel=kernel_name(kernel, shape[1]))
+        printed beside it.  ``plain`` is the plain version's wall time.
+        ``minor_bound`` (the wide forward rows): :func:`bound_ms`, each
+        minor eliminated alone, kept beside ``bound`` as
+        ``minor_bound_ms``."""
+        ms = device_ms(call, kernel=kernel_name(kernel, *shape[1:]))
         wall = cuda_ms(call)
         lib_ms = device_ms(library) if library is not None else None
         times[kernel] = {"ms": ms, "plain_ms": plain, "bound_ms": bound[0],
                          "bound_by": bound[1], "library_ms": lib_ms,
                          "shape": list(shape)}
+        minor = ""
+        if minor_bound is not None:
+            times[kernel]["minor_bound_ms"] = minor_bound[0]
+            minor = f", each minor alone {minor_bound[0]:.4f} ms"
         lib = (f"library {lib_ms:.4f} ms on the device, "
                f"{cuda_ms(library):.4f} ms a call" if library is not None
                else "library: no single PyTorch call computes this function")
         print(f"time {kernel} {label}: kernel {ms:.4f} ms on the device "
               f"({wall:.4f} ms a call), bound {bound[0]:.4f} ms "
-              f"({bound[1]}), plain {plain:.4f} ms, {lib}", flush=True)
+              f"({bound[1]}{minor}), plain {plain:.4f} ms, {lib}",
+              flush=True)
 
     # K1, K3 and K4 at the serving bucket that holds the most ranks
     (m, n), b = max(serve["stats"]["buckets"].items(),
@@ -3547,19 +3844,38 @@ def phase_times(gen: torch.Generator, serve: dict, k2_big,
     label = f"({B},{m},{n}) C={total}"
     plain_ms = cuda_ms(lambda: radic_batched_partial_plain(
         As, table, 0, total, chunk=1 << 16), min_reps=1, min_s=0)
+    walk = B * prefix_walk_flops(m, n)
+    print(f"prefix walk ({B},{m},{n}): {walk:.4e} float operations with "
+          f"each prefix eliminated once ({walk / PEAK_F32_FLOPS * 1e3:.4f}"
+          f" ms at the float32 peak), against "
+          f"{total * B * ge_flops(m):.4e} for the minors alone")
+    # the wide forward's bound: the prefix walk's operations (the minors'
+    # own, each eliminated alone, beside them)
     record("K1 wide", label, (B, m, n),
            lambda: ops.radic_det_batched_cuda(As, table=table),
-           plain_ms, bound_ms(B, m, n, total))
+           plain_ms, walk_bound_ms(B, m, n),
+           minor_bound=bound_ms(B, m, n, total))
     record("K4 wide", label, (B, m, n),   # K4's plain version is K1's
            lambda: ops.radic_det_batched_cuda_bygrid(As, table=table),
-           plain_ms, bound_ms(B, m, n, total))
+           plain_ms, walk_bound_ms(B, m, n),
+           minor_bound=bound_ms(B, m, n, total))
     A = As[0].clone()
     record("K2 wide", f"({m},{n}) C={total} through radic_det", (1, m, n),
            lambda: radic_det(A, backend="cuda"),
            cuda_ms(lambda: radic_partial_plain(A, table, 0, total,
                                                chunk=1 << 18),
                    min_reps=1, min_s=0),
-           bound_ms(1, m, n, total))
+           walk_bound_ms(1, m, n), minor_bound=bound_ms(1, m, n, total))
+    # the warp kernel at a shape the dispatch routes to it
+    B, m, n = WARP_TIMED
+    total = comb(n, m)
+    As = torch.randn(B, m, n, device="cuda", generator=gen)
+    table = rank_table(n, m, backend="cuda", device="cuda")
+    record("K1 wide warp", f"({B},{m},{n}) C={total}", (B, m, n),
+           lambda: ops.radic_det_batched_cuda(As, table=table),
+           cuda_ms(lambda: radic_batched_partial_plain(
+               As, table, 0, total, chunk=1 << 16), min_reps=1, min_s=0),
+           walk_bound_ms(B, m, n), minor_bound=bound_ms(B, m, n, total))
     B, m, n = 3, 20, 26
     total = comb(n, m)
     As = torch.randn(B, m, n, device="cuda", generator=gen)
@@ -3596,6 +3912,10 @@ def phase_times(gen: torch.Generator, serve: dict, k2_big,
                library=lambda: torch.linalg.det(M))
     return times
 
+
+# K1 on the warp kernel (radic_warp.cu) in phase 9: a stack at n = m + 1,
+# below the prefix walk's threshold
+WARP_TIMED = (2048, 20, 21)
 
 # phase 19: the 8-layer pipeline and the (pod, data) grid of compression
 PIPE_LAYERS, PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 8, 4, 8, 512
@@ -3984,15 +4304,19 @@ def main() -> int:
              k456["K6"], "K6 2^20 float32"),
             ("minor_det_cuda", "K6", "minor_det.cu", "minor_det.py:23",
              k456["K6"], "K6 2^20 float64"),
-            ("radic_batched_partial_cuda", "K1 wide", "radic_warp.cu",
+            ("radic_batched_partial_cuda", "K1 wide", "radic_prefix.cuh",
              "radic_fused.py:156", wide_serve["K1 wide"], "K1 wide"),
-            ("radic_partial_cuda", "K2 wide", "radic_warp.cu",
+            ("radic_batched_partial_cuda", "K1 wide warp", "radic_warp.cu",
+             "radic_fused.py:156", wide_serve["K1 wide warp"],
+             "K1 wide warp"),
+            ("radic_partial_cuda", "K2 wide", "radic_prefix.cuh",
              "radic_fused.py:39", wide["K2 wide"], "K2 wide"),
             ("radic_batched_grad_partial_cuda", "K3 wide",
              "radic_warp_grad.cuh", "radic_fused.py:201",
              wide_serve["K3 wide"], "K3 wide"),
-            ("radic_batched_partial_bygrid_cuda", "K4 wide", "radic_warp.cu",
-             "radic_fused.py:92", wide["K4 wide"], "K4 wide"),
+            ("radic_batched_partial_bygrid_cuda", "K4 wide",
+             "radic_prefix.cuh", "radic_fused.py:92", wide["K4 wide"],
+             "K4 wide"),
             *(("minor_det_cuda", "K6 wide", "minor_det_warp.cuh",
                "minor_det.py:23", wide[f"K6 m={m}"], timed)
               for m, timed in ((32, "K6 wide"), (17, "K6 wide m=17"),
@@ -4013,7 +4337,9 @@ def main() -> int:
                      "max_abs_err": errs.abs[kernel], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                     "timed": timed, "timed_shape": t["shape"]})
+                     "timed": timed, "timed_shape": t["shape"],
+                     **({"minor_bound_ms": t["minor_bound_ms"]}
+                        if "minor_bound_ms" in t else {})})
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

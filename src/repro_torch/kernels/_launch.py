@@ -2,11 +2,13 @@
 rule and the CUDA error code a launch returns.
 
 Every wrapper that launches a kernel is registered with :func:`counted`,
-which gives it a ``launches`` attribute and a ``wide_launches`` one;
-:func:`count` adds one to the first where the kernel is launched and
-nowhere else, and to the second too where that launch went to a kernel of
-the wide path (m >= 17: the warp kernels, and K6's block kernel), and
-:func:`reset_launch_counts` sets every registered count to 0."""
+which gives it a ``launches`` attribute, a ``wide_launches`` one and a
+``prefix_launches`` one; :func:`count` adds one to the first where the
+kernel is launched and nowhere else, to the second too where that launch
+went to a kernel of the wide path (m >= 17: the warp kernels, the prefix
+walk, and K6's block kernel), and to the third where it went to the
+prefix walk (``csrc/radic_prefix.cuh``); :func:`reset_launch_counts` sets
+every registered count to 0."""
 
 from __future__ import annotations
 
@@ -25,15 +27,17 @@ def counted(wrapper):
     """Register a wrapper's launch count (a decorator)."""
     wrapper.launches = 0
     wrapper.wide_launches = 0
+    wrapper.prefix_launches = 0
     with _lock:
         _wrappers.append(wrapper)
     return wrapper
 
 
-def count(wrapper, wide: bool = False) -> None:
+def count(wrapper, wide: bool = False, prefix: bool = False) -> None:
     with _lock:
         wrapper.launches += 1
         wrapper.wide_launches += int(wide)
+        wrapper.prefix_launches += int(prefix)
 
 
 def reset_launch_counts() -> None:
@@ -42,6 +46,7 @@ def reset_launch_counts() -> None:
         for wrapper in _wrappers:
             wrapper.launches = 0
             wrapper.wide_launches = 0
+            wrapper.prefix_launches = 0
 
 
 def launch_counts() -> dict[str, int]:

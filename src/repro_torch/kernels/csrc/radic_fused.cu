@@ -33,8 +33,9 @@
 //     staging -- so a matrix's result is bit-identical alone or inside any
 //     batch, and between the B = 1 (K2) and batched (K1) entries.
 //
-// m = 17..33 take the warp kernel of radic_warp.cu through the same
-// entries (walk_and_reduce), with the same reduction.
+// m = 17..33 take the prefix walk of radic_prefix.cuh or the warp kernel
+// of radic_warp.cu (by (m, n): prefix_walk) through the same entries
+// (walk_and_reduce), with the same reduction.
 //
 // The same kernel is K4, the by-grid twin: replaces radic_fused.py:92
 // radic_batched_kernel, whose (B, tiles) grid unranks every tile again
@@ -196,13 +197,17 @@ int walk_and_reduce(int chunk, const float* As, int B, int m, int n,
       (B + chunk - 1) / chunk > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // m <= 16: the register kernel above; 17..33: the warp kernel
+  // m <= 16: the register kernel above; 17..33: the prefix walk
+  // (radic_prefix.cuh) where prefix_walk(m, n), else the warp kernel
   // (radic_warp.cu)
   const cudaError_t e =
-      m > kMaxM ? launch_warp_walk(m, grid, chunk, s, As, B, n, table,
+      m <= kMaxM ? launch_walk_any(m, grid, chunk, s, As, B, n, table,
                                    q_start, count, partials)
-                : launch_walk_any(m, grid, chunk, s, As, B, n, table,
-                                  q_start, count, partials);
+      : prefix_walk(m, n)
+          ? launch_prefix_walk(m, grid, s, As, B, n, table, q_start, count,
+                               partials)
+          : launch_warp_walk(m, grid, chunk, s, As, B, n, table, q_start,
+                             count, partials);
   if (e != cudaSuccess) return static_cast<int>(e);
   reduce_partials_kernel<<<(B + 255) / 256, 256, 0, s>>>(partials, grid, B,
                                                           out);
@@ -235,14 +240,25 @@ int radic_bygrid_partial(const float* As, int B, int m, int n,
 }
 
 // Shared memory per block of K1 (static and dynamic) for a stack
-// (B, m, n), in bytes, on the register path (m <= kMaxM) or the warp
-// path (m <= kWarpMaxM); 0 outside them.
+// (B, m, n), in bytes, on the register path (m <= kMaxM), the prefix walk
+// or the warp kernel (m <= kWarpMaxM); 0 outside them.
 int radic_partial_smem_bytes(int B, int m, int n) {
   using namespace radic;
   if (B < 1 || m < 1 || m > kWarpMaxM || n < m) return 0;
-  if (m > kMaxM) return warp_partial_smem_bytes(B, m, n);
+  if (m > kMaxM)
+    return prefix_walk(m, n) ? prefix_smem_bytes(m, n)
+                             : warp_partial_smem_bytes(B, m, n);
   const int fixed = 4 * (m * kTile + kBatchChunk * kTile);
   return fixed + (staged(m, n) ? stage_bytes(m, n, min(kBatchChunk, B)) : 0);
+}
+
+// The kernel K1, K2 and K4 launch for (m, n): 0 the register kernel,
+// 1 the warp kernel (radic_warp.cu), 2 the prefix walk
+// (radic_prefix.cuh); -1 outside them.
+int radic_partial_route(int m, int n) {
+  using namespace radic;
+  if (m < 1 || m > kWarpMaxM || n < m) return -1;
+  return m <= kMaxM ? 0 : prefix_walk(m, n) ? 2 : 1;
 }
 
 const char* radic_error_string(int code) {

@@ -1,14 +1,20 @@
-// Radic partial sums at m = 17..33 (the wide path of K1, K2 and K4):
-// per matrix b of a shape-uniform stack As (B, m, n), out[b] = sum over
-// ranks q in [q_start, q_start + count) of sign(B_q) * det(A_b[:, B_q]).
+// Radic partial sums at m = 17..33 (the wide path of K1, K2 and K4, at
+// the shapes walk_and_reduce does not route to the prefix walk of
+// radic_prefix.cuh: n - m below its threshold, where consecutive ranks
+// share little): per matrix b of a shape-uniform stack As (B, m, n),
+// out[b] = sum over ranks q in [q_start, q_start + count) of
+// sign(B_q) * det(A_b[:, B_q]).
 //
 // Replaces, for the m the register kernel (radic_fused.cu) cannot hold,
 // repro/kernels/radic_fused.py:156 radic_batched_combo_kernel (K1), :39
 // radic_fused_kernel (K2, the same kernel at B = 1) and :92
 // radic_batched_kernel (K4, one matrix per block).
 //
-// What bounds it: arithmetic, as on the register path (about 2m^3/3 flops
-// a minor against m*n floats read once).  Design:
+// What bounds it: its warp collectives, not arithmetic.  Each of a
+// minor's m steps is a pivot search by two warp reductions and m - k
+// pivot-row shuffles, a serial chain (kernel_ab.py wide_diag put 55 of
+// its 161 ms at (3, 20, 30) in the search and 27 ms in the shuffles),
+// while 32 - m lanes idle.  Design:
 //   * one warp per (rank, matrix): lane i holds row i of the transposed
 //     minor a[i][j] = A[j, c_i] and the elimination is warp_lu (warp.cuh):
 //     a shuffle reduction finds the pivot, shuffles broadcast the pivot

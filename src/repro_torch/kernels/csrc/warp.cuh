@@ -300,6 +300,15 @@ cudaError_t launch_warp_walk(int m, int grid, int chunk, cudaStream_t s,
                              const float* As, int B, int n, const int* table,
                              int q_start, long long count, float* partials);
 int warp_partial_smem_bytes(int B, int m, int n);
+// radic_prefix.cu: whether (m, n) takes the prefix walk (radic_prefix.cuh)
+// in place of the warp kernel, its launch (without the reduction) and its
+// shared memory per block.
+bool prefix_walk(int m, int n);
+cudaError_t launch_prefix_walk(int m, int grid, cudaStream_t s,
+                               const float* As, int B, int n,
+                               const int* table, int q_start, long long count,
+                               float* partials);
+int prefix_smem_bytes(int m, int n);
 cudaError_t launch_grad_warp(int m, int grid, int B, cudaStream_t s,
                              const float* As, const float* cts, int n,
                              const int* table, int q_start, long long count,

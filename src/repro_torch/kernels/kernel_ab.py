@@ -3,7 +3,8 @@
 Each experiment names variants of the kernel sources in ``csrc/``, each a
 set of text edits (a choice switched off or changed) or of launch
 parameters of ``radic_fused`` (``PY``), and the shapes at which K1
-(``radic_batched_partial``), K4 (``radic_bygrid_partial``), K3
+(``radic_batched_partial``; at m ≥ 17 the prefix walk or the warp
+kernel, as the dispatch routes (m, n)), K4 (``radic_bygrid_partial``), K3
 (``radic_batched_grad_partial``), K5 (``radic_unrank``) or K6
 (``radic_minor_det``, float32; ``K6d``: float64) is timed.
 ``--baseline DIR`` adds one more variant, ``base``: the sources of
@@ -18,10 +19,12 @@ CUDA-event window over back-to-back calls: the calls run for
 milliseconds, so the window holds device time (K5 and K6, whose small
 shapes run for microseconds, are also timed by the profiler).  Every
 variant's result must equal ``cur``'s bit for bit (no choice here moves
-arithmetic), but for ``diag_`` variants, which take a phase out, launch
-parameters, which change a reduction's order, and the baseline's
-kernels redesigned since (``REDESIGNED``), whose difference is printed;
-ptxas's registers and spills are printed for the kernels timed.
+arithmetic), but for ``diag_`` variants, which take a phase out,
+variants of launch parameters alone or of a run length or dispatch
+threshold with the source constant it mirrors (``_REORDERING``), which
+change a reduction's order or the kernel, and the baseline's kernels
+redesigned since (``REDESIGNED``), whose difference is printed; ptxas's
+registers and spills are printed for the kernels timed.
 
     python -m repro_torch.kernels.kernel_ab [--baseline DIR] [EXPERIMENT ...]
 
@@ -82,8 +85,9 @@ K6_SHAPES = [("K6", 1 << 20, 8, 8), ("K6d", 1 << 20, 8, 8),
              ("K6", 2048, 8, 8)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 # kernels redesigned at m > 16 since the baseline: their bits may differ
-# from the baseline's
-REDESIGNED = ()
+# from the baseline's (K1 and K4 wide: the prefix walk eliminates A[:, B],
+# not the transposed minor)
+REDESIGNED = ("K1", "K4")
 # The warp kernels' phases (csrc/warp.cuh, csrc/radic_warp_grad.cuh) and
 # the edits that take each out, as {old: new} for the sources of the
 # earlier K3 (X and Z through shared memory) and of this one, so that the
@@ -228,6 +232,72 @@ K3_BAR_DONE = {
         "                            lt_s + warp * M * BR, perm_s + warp * BR, "
         "lane);\n")}
 
+# The prefix walk (csrc/radic_prefix.cuh, radic_prefix.cu): its dispatch
+# threshold, run length, registered and snapshotted levels, each a
+# constant of the source and its twin in radic_fused.py, and its register
+# cap; and the edits
+# that take out its pivot search (the pivot at index 0), its multipliers
+# (neither computed nor written nor read: each lane uses its own entry)
+# and its restarts (every level built from the staged columns, no step)
+PREFIX_CU = "radic_prefix.cu"
+PREFIX_CUH = "radic_prefix.cuh"
+
+
+def _prefix_const(fn: str, c: str, py: str, old, new) -> list:
+    """A variant setting ``constexpr ... c = old`` in ``fn`` and its twin
+    ``py`` in radic_fused.py to ``new``."""
+    kind = "long long" if c == "kPrefixRunsWanted" else "int"
+    return [(fn, f"constexpr {kind} {c} = {old};",
+             f"constexpr {kind} {c} = {new};"), (PY, py, new)]
+
+
+_WARP_ONLY = _prefix_const(PREFIX_CU, "kPrefixMinGap", "PREFIX_MIN_GAP", 6,
+                           99)
+_PREFIX_ALL = _prefix_const(PREFIX_CU, "kPrefixMinGap", "PREFIX_MIN_GAP", 6,
+                            0)
+
+
+_PREFIX_MIN_BLOCKS = "constexpr int kPrefixMinBlocks = 2;"
+PREFIX_NO_SEARCH = {"    if (r < L && u > best) {":
+                    "    if (r < 0 && u > best) {  // diag: no search"}
+PREFIX_NO_BCAST = {
+    "    if (r + 1 < L) rec[4 + r] = quotient(r < p ? v[r] : v[r + 1], safe, "
+    "inv);": "    if (r + 1 < L) (void)inv;  // diag: no multipliers",
+    "    const float4 q = r4[g];":
+    "    const float4 q = make_float4(v[0], v[0], v[0], v[0]);  // diag: no "
+    "broadcast"}
+PREFIX_NO_RESTART = {"        for (int k = from; k < K0; ++k) {":
+                     "        for (int k = K0; k < K0; ++k) {  // diag: no "
+                     "restart"}
+# the shapes: the warp kernels' m sweep (wide_m), the kernel table's
+# (3, 20, 30) for K1 and K4 and K1 at B = 1 (K2's launch); and for the
+# dispatch, chip_smoke.py's WIDE_SHAPES and n - m = 0 .. 6 at m = 17, 20
+# and 24 on stacks of at least a few hundred thousand minors (the walk has
+# no instance above m = 27)
+PREFIX_SHAPES = [
+    *(("K1", B, m, n) for B, m, n in [
+        (3, 17, 26), (3, 20, 28), (3, 22, 30), (16, 24, 30), (16, 26, 32),
+        (16, 28, 33), (64, 30, 33)]),
+    ("K1", 3, 20, 30), ("K4", 3, 20, 30), ("K1", 1, 20, 30)]
+PREFIX_EDGE_SHAPES = [
+    *(("K1", B, m, n) for B, m, n in [
+        (3, 17, 20), (2, 20, 22), (3, 24, 26), (1, 33, 33), (2, 32, 33)]),
+    *(("K1", max(64, min(4096, 400_000 // comb(m + g, m))), m, m + g)
+      for m in range(17, rf.PREFIX_MAX_M + 1) for g in range(7)
+      if m + g <= 33 and (g >= 2 or m in (17, 20, 24))),
+    # the gap that won at B = 64 and one each side, at B = 2, where a
+    # short range is latency-bound
+    *(("K1", 2, m, m + g) for m in range(17, rf.PREFIX_MAX_M + 1)
+      for g in range(2, 7) if m + g <= 33
+      and abs(g - (3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5)[m - 17]) <= 1)]
+# each m's widest n whose C(n, m) falls short of 2**18 ranks and its
+# narrowest n past them, at B = 2 and 64 (a rule by the rank count, which
+# these ruled out: n - m separates the winners better)
+PREFIX_RANK_SHAPES = [
+    ("K1", B, m, n) for B in (2, 64)
+    for m in range(17, rf.PREFIX_MAX_M + 1) for n in range(m, 34)
+    if comb(n, m) < 1 << 18 <= comb(n + 1, m) or
+    comb(n - 1, m) < 1 << 18 <= comb(n, m)]
 
 # name -> (variants {name: [(file, old, new), ...]}, shapes [(kernel, B, m, n)])
 EXPERIMENTS = {
@@ -355,6 +425,48 @@ EXPERIMENTS = {
         (kernel, B, m, n) for B, m, n in [
             (3, 17, 26), (3, 20, 28), (3, 22, 30), (16, 24, 30), (16, 26, 32),
             (16, 28, 33), (64, 30, 33)] for kernel in ("K1", "K3")]),
+    # the prefix walk (K1, K2 and K4 at m >= 17 where n - m >= 6) against
+    # the warp kernel in this tree (warp_only), its run length, register
+    # cap, snapshotted and registered levels, and diagnostics taking out
+    # its pivot search, its multipliers and its restarts (with
+    # --baseline, against the parent's kernels too)
+    "prefix": ({
+        "warp_only": _WARP_ONLY,
+        "run128": _prefix_const(PREFIX_CU, "kPrefixRunMax", "PREFIX_RUN_MAX",
+                                512, 128),
+        "run2048": _prefix_const(PREFIX_CU, "kPrefixRunMax",
+                                 "PREFIX_RUN_MAX", 512, 2048),
+        "runs8192": _prefix_const(PREFIX_CU, "kPrefixRunsWanted",
+                                  "PREFIX_RUNS_WANTED", 2048, 8192),
+        "min_blocks1": [(PREFIX_CUH, _PREFIX_MIN_BLOCKS,
+                         "constexpr int kPrefixMinBlocks = 1;")],
+        "min_blocks3": [(PREFIX_CUH, _PREFIX_MIN_BLOCKS,
+                         "constexpr int kPrefixMinBlocks = 3;")],
+        "snap0": _prefix_const(PREFIX_CUH, "kPrefixSnap", "PREFIX_SNAP", 6,
+                               0),
+        "snap4": _prefix_const(PREFIX_CUH, "kPrefixSnap", "PREFIX_SNAP", 6,
+                               4),
+        "deep8": _prefix_const(PREFIX_CUH, "kPrefixDeep", "PREFIX_DEEP", 10,
+                               8),
+        "deep12": _prefix_const(PREFIX_CUH, "kPrefixDeep", "PREFIX_DEEP", 10,
+                                12),
+        "diag_no_search": [(PREFIX_CUH, PREFIX_NO_SEARCH)],
+        "diag_no_bcast": [(PREFIX_CUH, {old: new})
+                          for old, new in PREFIX_NO_BCAST.items()],
+        "diag_no_restart": [(PREFIX_CUH, PREFIX_NO_RESTART)],
+    }, PREFIX_SHAPES),
+    # the prefix walk's dispatch: every shape on the warp kernel
+    # (warp_only) and on the prefix walk (prefix_all; with runs of 8 ranks
+    # at least, in place of 32, prefix_all_run8)
+    "prefix_edge": ({"warp_only": _WARP_ONLY, "prefix_all": _PREFIX_ALL,
+                     "prefix_all_run8": _PREFIX_ALL + _prefix_const(
+                         PREFIX_CU, "kPrefixRunMin", "PREFIX_RUN_MIN", 32,
+                         8)},
+                    PREFIX_EDGE_SHAPES),
+    # the shapes on each side of 2**18 ranks on the warp kernel and on the
+    # prefix walk
+    "prefix_ranks": ({"warp_only": _WARP_ONLY, "prefix_all": _PREFIX_ALL},
+                     PREFIX_RANK_SHAPES),
     # K6's staged tile at m <= 16 (the wrapper's 128 matrices at a stride
     # of m^2 + 1, in up to 227 KB of shared memory) against a 100 KB and a
     # 48 KB budget and against no staging (each thread reading its matrix
@@ -420,7 +532,7 @@ def _build_all(variants: dict[str, list],
     if baseline is not None:
         every["base"] = []
         every.update({f"base+{v}": e for v, e in variants.items()
-                      if _is_diag(v)})
+                      if _is_diag(v) and _fits(baseline, e)})
     jobs = {}
     for name, edits in every.items():
         root = "base" if name.startswith("base") else "cur"
@@ -465,14 +577,33 @@ def _build_all(variants: dict[str, list],
     return libs, ptxas
 
 
+def _fits(src_dir: Path, edits: list) -> bool:
+    """Whether some edit of a variant finds its text in ``src_dir`` (a
+    diagnostic of a kernel the baseline does not have is not built on
+    it)."""
+    return any(old is not None and (src_dir / fn).exists()
+               and old in (src_dir / fn).read_text()
+               for fn, alts in _source_edits(edits) for old in alts)
+
+
 def _is_diag(variant: str) -> bool:
     return variant.split(".")[-1].startswith("diag_")
 
 
+# launch parameters that, set with the source constant they mirror,
+# change the order of the partials' reduction (a run's length) or the
+# kernel (the dispatch threshold); the prefix walk's other constants
+# (registered and snapshotted levels) move no arithmetic
+_REORDERING = {"PREFIX_RUN_MAX", "PREFIX_RUN_MIN", "PREFIX_RUNS_WANTED",
+               "PREFIX_MIN_GAP"}
+
+
 def _launch_only(edits: list) -> bool:
-    """A variant of launch parameters (a grid changes the order of the
-    partials' reduction, so its bits may differ)."""
-    return bool(edits) and all(e[0] == PY for e in edits)
+    """A variant of launch parameters alone, or one that sets a
+    parameter of ``_REORDERING`` with its source constant: its bits may
+    differ."""
+    return bool(edits) and (all(e[0] == PY for e in edits) or any(
+        e[0] == PY and e[1] in _REORDERING for e in edits))
 
 
 @contextlib.contextmanager
@@ -527,6 +658,7 @@ def _ptxas(log: str) -> dict[str, str]:
             k1 = re.search(r"radic_partial_kernelILi(\d+)ELb(\d)", e.group(1))
             k3 = re.search(r"radic_grad_partial_kernelILi(\d+)E", e.group(1))
             w1 = re.search(r"radic_warp_partial_kernelILi(\d+)E", e.group(1))
+            p1 = re.search(r"radic_prefix_kernelILi(\d+)E", e.group(1))
             w3 = re.search(r"radic_grad_warp_kernelILi(\d+)E", e.group(1))
             w6 = re.search(r"minor_det_warp_kernelILi(\d+)E(?:Lb[01]E)?"
                            r"([fd])", e.group(1))
@@ -534,6 +666,7 @@ def _ptxas(log: str) -> dict[str, str]:
             cur = (f"K1<{k1.group(1)},{'staged' if k1.group(2) == '1' else 'global'}>"
                    if k1 else f"K3<{k3.group(1)}>" if k3 else
                    f"K1<{w1.group(1)},warp>" if w1 else
+                   f"K1<{p1.group(1)},prefix>" if p1 else
                    f"K3<{w3.group(1)},warp>" if w3 else
                    f"K6<{w6.group(1)},warp,{w6.group(2)}>" if w6 else
                    f"K6<block,{b6.group(1)}>" if b6 else None)
@@ -553,7 +686,9 @@ def _call(lib, kernel: str, As, cts, table, count: int, grids=rf):
     B, m, n = As.shape
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     if kernel in ("K1", "K4"):
-        G = (grids.grid_blocks(count) if m <= rf.CUDA_MAX_M
+        G = (grids.partial_grid_blocks(m, n, count)
+             if hasattr(grids, "partial_grid_blocks") else
+             grids.grid_blocks(count) if m <= rf.CUDA_MAX_M
              else grids.warp_grid_blocks(count))
         part = torch.empty((G, B), device="cuda")
         out = torch.empty((B,), device="cuda")
@@ -573,6 +708,7 @@ def _call(lib, kernel: str, As, cts, table, count: int, grids=rf):
         rc = fn(*args)
         if rc:
             raise RuntimeError(lib.radic_error_string(rc).decode())
+    run.buffers = (part, out)   # alive while the launch may write them
     return run, out
 
 
@@ -620,6 +756,7 @@ def _call_small(lib, kernel: str, x, m: int, n: int):
         rc = fn(*args)
         if rc:
             raise RuntimeError(lib.radic_error_string(rc).decode())
+    run.buffers = (work, out)   # alive while the launch may write them
     return run, out
 
 
@@ -683,7 +820,7 @@ def main(argv: list[str]) -> int:
             order = ["cur", *(f"{e}.{v}" for v in EXPERIMENTS[e][0]),
                      *(["base"] if baseline is not None else []),
                      *(f"base+{e}.{v}" for v in EXPERIMENTS[e][0]
-                       if baseline is not None and _is_diag(v))]
+                       if f"base+{e}.{v}" in libs)]
             if kernel in ("K1", "K3", "K4"):
                 As = torch.randn(B, m, n, device="cuda", generator=gen)
                 cts = torch.randn(B, device="cuda", generator=gen)

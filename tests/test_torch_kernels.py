@@ -469,3 +469,17 @@ def test_kernel_ab_variants_fit_the_sources(experiment, variant, edits):
                    if old is not None)
     for _, name, value in (e for e in edits if e[0] == kernel_ab.PY):
         assert getattr(rf, name) != value, name
+
+
+@pytest.mark.parametrize("variant,exempt", [
+    ("run128", True), ("run2048", True), ("runs8192", True),
+    ("warp_only", True), ("deep8", False), ("deep12", False),
+    ("snap0", False), ("snap4", False), ("min_blocks1", False)])
+def test_kernel_ab_exempts_only_reordering_variants(variant, exempt):
+    """Of the prefix walk's variants, only those that change a run's
+    length or the dispatch (the reduction's order or the kernel) may
+    differ from ``cur`` in bits; the registered and snapshotted levels
+    and the register cap are held to the same bits."""
+    from repro_torch.kernels import kernel_ab
+    edits = kernel_ab.EXPERIMENTS["prefix"][0][variant]
+    assert kernel_ab._launch_only(edits) is exempt

@@ -2,8 +2,10 @@
 reference's Pallas entries in interpret mode, on the CPU, where the
 wrappers run their plain versions: values, gradients, the by-grid and
 B = 1 entries, the table's overflow at (33, 34), ``minor_det`` for large
-m, a queue serving m >= 17, and a torch model of the warp kernel's rank
-tiling.  On the card ``chip_smoke.py`` holds the warp kernels against
+m, a queue serving m >= 17, a torch model of the warp kernel's rank
+tiling, and the plain torch model of the prefix walk (its visit order,
+its leaves, its partial sums and its step count).  On the card
+``chip_smoke.py`` holds the warp kernels and the prefix walk against
 these same plain versions."""
 
 import numpy as np
@@ -230,12 +232,23 @@ def _warp_runs(q_start: int, count: int):
                                    64 * 1024 + 5, 30_045_015])
 def test_warp_grid_blocks_is_a_function_of_count(count):
     """The warp walk's block count depends on the rank count alone (never
-    on B); every block walks at least one tile."""
+    on B); every block walks at least one tile.  So do the prefix walk's
+    run length and block count: a run of 512 ranks halved (to 32 at
+    least) while a matrix has fewer than 2,048 runs, a tile of 8 runs."""
     G = rf.warp_grid_blocks(count)
     assert G == max(1, min(-(-count // rf.WARP_TILE), rf.MAX_BLOCKS))
     if count <= 10 ** 6:
         block, _, _, _ = _warp_runs(0, count)
         assert set(block.tolist()) == set(range(G))
+    run = rf.prefix_run(count)
+    assert run in (32, 64, 128, 256, 512)
+    assert run == 32 or count >= run * rf.PREFIX_RUNS_WANTED
+    assert run == 512 or count < 2 * run * rf.PREFIX_RUNS_WANTED
+    tiles = -(-count // (rf.PREFIX_WARPS * run))
+    Gp = rf.prefix_grid_blocks(count)
+    assert Gp == max(1, min(tiles, rf.MAX_BLOCKS))
+    # each block walks tiles g, g + G, ...: every block holds a tile
+    assert {t % Gp for t in range(min(tiles, 2 * Gp))} == set(range(Gp))
 
 
 @pytest.mark.parametrize("q_start,count", [(0, 1), (3, 6), (60, 9),
@@ -281,6 +294,11 @@ def test_warp_kernels_shared_memory_fits_a_block(m):
     widest batch slice."""
     for n in range(m, 34):
         assert rf.warp_partial_smem_bytes(16, m, n) <= SMEM_PER_BLOCK
+        # two blocks of the prefix walk (its register cap) fit an SM
+        assert 2 * rf.prefix_smem_bytes(m, n) <= SMEM_PER_BLOCK
+        assert rf.wide_partial_smem_bytes(16, m, n) == (
+            rf.prefix_smem_bytes(m, n) if rf.prefix_walk(m, n)
+            else rf.warp_partial_smem_bytes(16, m, n))
     assert rf.warp_grad_tile(m) in (8, 16, 32)
     assert rf.warp_grad_tile(m) * m * m * 4 <= 48 * 1024 \
         or rf.warp_grad_tile(m) == 8
@@ -302,3 +320,125 @@ def test_warp_grad_grid_is_a_function_of_the_shape(count, m, n):
     assert g * m * n <= rf.WARP_GRAD_PARTIAL_FLOATS <= (4 << 20) // 4
     assert g >= min(-(-count // tile), rf.GRAD_PARTIAL_FLOATS // (m * n))
 
+
+
+# ------------------------------------------------- the prefix walk's model
+# (m, n, q_start, count, run): a whole range in runs of 32 (tiles, runs
+# and restarts straddled, ending at the last rank), a range inside one
+# run, one that starts mid-subtree in runs of 32, the last 300 ranks in
+# runs of 128 (restarts inside a run), and a whole range in one run
+WALKS = {"whole": (17, 20, 0, 1140, None), "one_run": (18, 21, 100, 20, None),
+         "mid": (19, 22, 1000, 500, None), "last": (20, 23, 1771 - 300, 300, 128),
+         "single": (17, 19, 0, 171, 1 << 20)}
+
+
+def _walk_matrix(m, n, seed):
+    return np.random.default_rng(seed).normal(size=(m, n)) / np.sqrt(m)
+
+
+@pytest.fixture(scope="module")
+def walks():
+    out = {}
+    for name, (m, n, q0, cnt, run) in WALKS.items():
+        A = _walk_matrix(m, n, m * 7 + n)
+        table = torch.as_tensor(binom_table(n, m, dtype=np.int64))
+        out[name] = (A, rf.prefix_walk_model(torch.from_numpy(A), table, q0,
+                                             cnt, run=run))
+    return out
+
+
+def _prefix_counts(combos, m):
+    """Distinct prefixes of each length among a run's combinations."""
+    return [len({c[:k] for c in combos}) for k in range(m + 1)]
+
+
+@pytest.mark.parametrize("name", list(WALKS))
+def test_prefix_walk_visits_each_rank_once_in_order(walks, name):
+    """Each run visits its ranks in rank order, from its first, and the
+    runs cover the range once."""
+    from repro_torch.core.unrank import unrank_py
+    m, n, q0, cnt, run = WALKS[name]
+    _, res = walks[name]
+    seen = []
+    for first, leaves in res["runs"]:
+        assert len(leaves) == min(run or rf.prefix_run(cnt), q0 + cnt - first)
+        for i, (combo, _) in enumerate(leaves):
+            assert combo == tuple(c - 1 for c in unrank_py(first + i, n, m))
+        seen += range(first, first + len(leaves))
+    assert sorted(seen) == list(range(q0, q0 + cnt))
+
+
+@pytest.mark.parametrize("name", list(WALKS))
+def test_prefix_walk_leaves_are_the_minors(walks, name):
+    """Each leaf's determinant (its shared prefix's pivots times its own
+    last pivot, with the permutation's sign) is float64 det(A[:, B])."""
+    A, res = walks[name]
+    combos = [c for _, leaves in res["runs"] for c, _ in leaves]
+    dets = torch.stack([d for _, leaves in res["runs"] for _, d in leaves])
+    X = torch.from_numpy(A)
+    want = torch.linalg.det(X[:, torch.tensor(combos)].permute(1, 0, 2))
+    assert (dets - want).abs().max() <= 1e-12 * max(1.0, want.abs().max())
+
+
+@pytest.mark.parametrize("name", list(WALKS))
+def test_prefix_walk_steps_follow_the_prefix_counts(walks, name):
+    """One step a prefix of length lo + 1 .. m - 1 met in a run (levels
+    lo..K0-1 are snapshotted, so a restart resumes below the deepest
+    level its change leaves intact), and lo steps a restart that the
+    change takes above level lo (one a prefix of length lo met in a run);
+    a restart a prefix of length K0 met in a run.  Over a whole range in
+    one run that is C(n, m - 1) - 1 plus the extra steps, sum over k <= lo
+    of (R - C(n - m + k, k)), R = C(n - m + lo, lo)."""
+    m, n, q0, cnt, run = WALKS[name]
+    _, res = walks[name]
+    K0 = m - min(rf.PREFIX_DEEP, m - 1)
+    lo = max(1, K0 - rf.PREFIX_SNAP)
+    steps = restarts = 0
+    for _, leaves in res["runs"]:
+        d = _prefix_counts([c for c, _ in leaves], m)
+        steps += sum(d[lo + 1:m]) + lo * d[lo]
+        restarts += d[K0]
+    assert (res["steps"], res["restarts"]) == (steps, restarts)
+    if name == "single":
+        R = comb(n - m + lo, lo)
+        assert restarts == comb(n - m + K0, K0)
+        assert steps == comb(n, m - 1) - 1 + sum(
+            R - comb(n - m + k, k) for k in range(1, lo + 1))
+
+
+@pytest.mark.parametrize("name", ["whole", "mid", "last"])
+def test_prefix_walk_partial_matches_reference_pallas(walks, name):
+    """The model in float32 sums the range as the reference's Pallas
+    entry does, at its tolerances."""
+    m, n, q0, cnt, run = WALKS[name]
+    A, _ = walks[name]
+    A32 = A.astype(np.float32)
+    got = rf.prefix_walk_model(torch.from_numpy(A32),
+                               torch.as_tensor(binom_table(n, m, dtype=np.int64)),
+                               q0, cnt, dtype=torch.float32, run=run)["total"]
+    want = np.asarray(ref_ops.radic_det_batched_pallas(jnp.asarray(A32[None]),
+                                                       q0, cnt))[0]
+    np.testing.assert_allclose(float(got), want, rtol=1e-3, atol=1e-4)
+    assert abs(float(got) - ref.radic_partial_ref(A32, q0, cnt)) <= 2e-3 * max(
+        1.0, abs(ref.radic_partial_ref(A32, q0, cnt)))
+
+
+@pytest.mark.parametrize("kind", ["zero", "nan"])
+def test_prefix_walk_bad_column_reaches_only_its_minors(kind):
+    """A zero column gives exactly 0 and a NaN column gives NaN exactly in
+    the leaves that take it, the column being a pivot of the prefix or a
+    leaf's last; every other leaf stays finite and nonzero."""
+    m, n = 17, 20
+    A = _walk_matrix(m, n, 5)
+    bad = (2, n - 1)
+    A[:, list(bad)] = 0.0 if kind == "zero" else np.nan
+    res = rf.prefix_walk_model(torch.from_numpy(A),
+                               torch.as_tensor(binom_table(n, m, dtype=np.int64)),
+                               0, comb(n, m))
+    for _, leaves in res["runs"]:
+        for combo, det in leaves:
+            if set(bad) & set(combo):
+                assert (float(det) == 0.0) if kind == "zero" \
+                    else bool(torch.isnan(det))
+            else:
+                assert bool(torch.isfinite(det)) and float(det) != 0.0

@@ -39,10 +39,25 @@ families before traffic (DESIGN_PERSIST.md).  With a ``mesh``
 (:class:`repro_torch.core.distributed.Mesh`) every batch is staged on the
 mesh's first device and sharded rank space × batch over the grid
 (``batch_axis``), as ``radic_det_batched(mesh=...)`` does.
+
+The pipeline times itself.  ``stats`` (``snapshot()``) carries the
+stager's ``stage_s`` a snapshot, of which ``stage_wait_s`` blocked on the
+full in-flight queue and ``stage_cpu_s`` ran on a CPU
+(``time.thread_time``); the completer's ``complete_host_s``, from a
+batch's event to its futures resolved; and ``backlog_s``, each delivered
+request's wait from submit to the stager's snapshot.  While a profiler
+runs, each phase is a ``torch.profiler`` range on the device trace's
+clock: ``queue.plan``, ``queue.pack``, ``queue.upload``, ``queue.launch``
+and ``queue.handoff`` on the stager, ``queue.device_wait``,
+``queue.copy_back`` and ``queue.deliver`` on the completer.  No range
+encloses another, so a gap of the card is put down to one phase; a
+profiler sees them only if it records every thread
+(``profile_all_threads``), and without a profiler none is entered.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -52,6 +67,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _profiler
 
 from repro_torch.core import DetEngine, comb
 from repro_torch.core.radic import resolve_device
@@ -76,6 +92,18 @@ def resolve_future(fut: Future, val=None, exc: BaseException | None = None):
             fut.set_result(val)
     except Exception:  # noqa: BLE001 — InvalidStateError from cancel race
         pass
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _range(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler runs;
+    else nothing, since a range costs about 10 µs even when no profiler
+    records it and the stager sets the pace."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
 
 
 def prepare_matrix(A, dtype) -> np.ndarray:
@@ -288,6 +316,7 @@ class StagePlan:
     capacity: int
     merged_count: int          # how many requests were column-padded here
     grad: bool = False         # gradient batch: dispatches plan.grad
+    t_taken: float = 0.0       # the stager's snapshot (perf_counter)
 
     @property
     def merged(self) -> bool:
@@ -575,7 +604,8 @@ class DetQueue:
             "grad_dispatches": 0,
             "merged_requests": 0, "padded_slots": 0, "ranks": 0,
             "responses_dropped": 0, "shed": 0, "backlog_peak": 0,
-            "stage_s": 0.0, "complete_s": 0.0,
+            "stage_s": 0.0, "stage_wait_s": 0.0, "stage_cpu_s": 0.0,
+            "complete_host_s": 0.0, "backlog_s": 0.0,
             "buckets": {},
         }
 
@@ -759,17 +789,23 @@ class DetQueue:
             self._resp_cv.notify_all()
 
     def _deliver(self, plan: StagePlan, outs: list[float], *, ranks: int = 0,
-                 complete_s: float = 0.0, count_batch: bool = False):
+                 t_host: float | None = None,
+                 count_batch: bool = False) -> float:
         """Deliver one finished batch — ``poll()`` responses and stats
         strictly before the futures resolve: a caller woken by the
         batch's last future must observe the batch fully counted and its
         responses visible (``serve()`` and the stats assertions in the
         tests rely on this).  ``count_batch`` is for paths that bypass
         the stager's batch accounting (the trivial m > n short-circuit).
+
+        ``t_host`` (the completer's) starts the batch's host time, which
+        is counted with the stats; the futures resolve after that, so
+        their time is returned for the next batch to count.
         """
         k = len(plan.requests)
         now = time.perf_counter()
-        wait = sum(now - r.t_submit for r in plan.requests)
+        submitted = sum(r.t_submit for r in plan.requests)
+        wait = k * now - submitted
         # drop accounting under the response cv so concurrent deliverers
         # (stager's trivial path + completer) don't both read a stale
         # length; an active poller draining in parallel can still make
@@ -785,7 +821,7 @@ class DetQueue:
             st["batches"] += 1 if count_batch else 0
             st["completed"] += k
             st["ranks"] += ranks
-            st["complete_s"] += complete_s
+            st["backlog_s"] += k * plan.t_taken - submitted
             st["responses_dropped"] += dropped
             b = st["buckets"].setdefault(
                 plan.shape, {"count": 0, "batches": 0, "ranks": 0,
@@ -794,8 +830,12 @@ class DetQueue:
             b["batches"] += 1
             b["ranks"] += ranks
             b["wait_s"] += wait
+            t_counted = time.perf_counter()
+            if t_host is not None:
+                st["complete_host_s"] += t_counted - t_host
         for r, val in zip(plan.requests, outs):
             self._resolve(r.future, val)
+        return time.perf_counter() - t_counted
 
     def _complete_trivial(self, plan: StagePlan):
         """Deliver an m > n batch (det = 0 by definition) straight from
@@ -809,12 +849,11 @@ class DetQueue:
             outs = [0.0] * len(plan.requests)
         self._deliver(plan, outs, count_batch=True)
 
-    def _stage_one(self, plan: StagePlan):
-        """Pad + stack into a host buffer and begin the upload for one
-        planned batch → ``(device stack, device cotangents or None, host
-        buffers)``.  On a card the host buffers are pinned and the copies
-        are asynchronous on the current stream; the caller keeps the host
-        buffers alive until the batch completes.
+    def _pack(self, plan: StagePlan) -> tuple[torch.Tensor, ...]:
+        """Pad + stack one planned batch into host buffers → ``(stack,)``,
+        or ``(stack, cotangents)`` for a grad batch.  On a card they are
+        pinned, so that the upload can be asynchronous; the caller keeps
+        them alive until the batch completes.
 
         Grad batches also stage the per-matrix cotangent vector; padded
         slots carry ``ct = 0`` and are sliced off before delivery, so
@@ -828,14 +867,21 @@ class DetQueue:
         for j, r in enumerate(plan.requests):
             rm, rn = r.shape
             view[j, :rm, :rn] = r.array   # zero col-pad is det-exact
-        dev = host.to(self.device, non_blocking=cuda)
         if not plan.grad:
-            return dev, None, (host,)
+            return (host,)
         host_ct = torch.zeros((plan.capacity,), dtype=self._torch_dtype,
                               pin_memory=cuda)
         host_ct.numpy()[:len(plan.requests)] = [r.ct for r in plan.requests]
-        return dev, host_ct.to(self.device, non_blocking=cuda), \
-            (host, host_ct)
+        return host, host_ct
+
+    def _upload(self, host: tuple[torch.Tensor, ...]
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Begin the copies of ``_pack``'s buffers → ``(device stack,
+        device cotangents or None)``; on a card they are asynchronous on
+        the current stream."""
+        cuda = self.device.type == "cuda"
+        dev = [t.to(self.device, non_blocking=cuda) for t in host]
+        return dev[0], (dev[1] if len(dev) > 1 else None)
 
     def _stager(self):
         try:
@@ -861,9 +907,12 @@ class DetQueue:
                     reqs, self._pending = self._pending, []
                     closing = self._closing
                 if reqs:
-                    t0 = time.perf_counter()
-                    depth = len(reqs)
-                    for plan in plan_buckets(reqs, self.policy, depth):
+                    t0, cpu0 = time.perf_counter(), time.thread_time()
+                    waited = 0.0   # blocked on the full in-flight queue
+                    with _range("queue.plan"):
+                        plans = plan_buckets(reqs, self.policy, len(reqs))
+                    for plan in plans:
+                        plan.t_taken = t0
                         if plan.capacity == 0:
                             continue  # empty buckets dispatch nothing
                         if plan.shape[0] > plan.shape[1]:
@@ -872,18 +921,22 @@ class DetQueue:
                             self._complete_trivial(plan)
                             continue
                         try:
-                            dev, cts, host = self._stage_one(plan)
-                            exe = self._plan(plan.shape, plan.capacity)
+                            with _range("queue.pack"):
+                                host = self._pack(plan)
+                            with _range("queue.upload"):
+                                dev, cts = self._upload(host)
                             # async dispatch: the launch only enqueues
                             # device work (grad batches enter the plan's
                             # VJP, value batches its forward); the event
                             # marks its end
-                            dets = exe.grad(dev, cts) if plan.grad \
-                                else exe(dev)
-                            done = None
-                            if self.device.type == "cuda":
-                                done = torch.cuda.Event()
-                                done.record()
+                            with _range("queue.launch"):
+                                exe = self._plan(plan.shape, plan.capacity)
+                                dets = exe.grad(dev, cts) if plan.grad \
+                                    else exe(dev)
+                                done = None
+                                if self.device.type == "cuda":
+                                    done = torch.cuda.Event()
+                                    done.record()
                         except Exception as e:  # noqa: BLE001 — batch-local
                             # e.g. C(n, m) overflowing int32 for one weird
                             # shape: fail this batch, keep serving the rest
@@ -899,12 +952,19 @@ class DetQueue:
                             st["merged_requests"] += plan.merged_count
                             st["padded_slots"] += (plan.capacity
                                                    - len(plan.requests))
-                        if not self._put_alive(self._inflight,
-                                               (plan, dets, done, host)):
+                        t_put = time.perf_counter()
+                        with _range("queue.handoff"):
+                            alive = self._put_alive(
+                                self._inflight, (plan, dets, done, host))
+                        waited += time.perf_counter() - t_put
+                        if not alive:
                             self._fail_plan(plan, self._fatal_now())
                             return
                     with self._lock:
-                        self.stats["stage_s"] += time.perf_counter() - t0
+                        st = self.stats
+                        st["stage_s"] += time.perf_counter() - t0
+                        st["stage_wait_s"] += waited
+                        st["stage_cpu_s"] += time.thread_time() - cpu0
                 if closing:
                     self._put_alive(self._inflight, _SHUTDOWN)
                     return
@@ -913,27 +973,35 @@ class DetQueue:
 
     def _completer(self):
         try:
+            # the last batch's futures, resolved after its stats were
+            # counted: the next batch counts their host time
+            carried = 0.0
             while True:
                 item = self._inflight.get()
                 if isinstance(item, _Shutdown):
                     return
                 plan, dets, done, host = item
-                t0 = time.perf_counter()
                 try:
                     if done is not None:
-                        done.synchronize()
-                    vals = dets.cpu().numpy()
+                        with _range("queue.device_wait"):
+                            done.synchronize()
+                    t_host = time.perf_counter() - carried
+                    with _range("queue.copy_back"):
+                        vals = dets.cpu().numpy()
+                        k = len(plan.requests)
+                        # grad batches deliver the (m, n) arrays
+                        # themselves; value batches unpack the
+                        # (capacity,) dets to floats
+                        outs = list(vals[:k]) if plan.grad \
+                            else vals[:k].tolist()
                 except Exception as e:  # noqa: BLE001 — batch-local
                     self._fail_plan(plan, e)
                     continue
                 del host  # the upload has completed: release the pin
-                k = len(plan.requests)
                 m, n = plan.shape
-                # grad batches deliver the (m, n) arrays themselves;
-                # value batches unpack the (capacity,) dets to floats
-                outs = list(vals[:k]) if plan.grad else vals[:k].tolist()
-                self._deliver(plan, outs,
-                              ranks=comb(n, m) * k,
-                              complete_s=time.perf_counter() - t0)
+                with _range("queue.deliver"):
+                    carried = self._deliver(plan, outs,
+                                            ranks=comb(n, m) * k,
+                                            t_host=t_host)
         except BaseException as e:  # noqa: BLE001
             self._fail_all(e)

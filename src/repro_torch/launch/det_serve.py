@@ -47,6 +47,18 @@ checkout that never built loads it instead of running ``nvcc``.
 ``--prefill`` (on by default with a store) ships joining workers the
 front's live plan families, which they warm before admission.
 
+``--trace-out FILE`` (the one-queue async path) runs the timed pass under
+``torch.profiler`` with every thread recorded and writes its Chrome
+trace to FILE: the queue's stager and completer ranges (``queue.pack``,
+``queue.launch``, ``queue.device_wait``, ...; see
+:mod:`repro_torch.launch.det_queue`) beside the card's kernels and
+copies, on one clock, so that each idle gap of the card can be put down
+to the phase of the host that held it.  The async stats line ends with
+the pipeline's readings: the stager's busy ms a batch (its time less the
+wait on the full in-flight queue) and the share of it on a CPU, the
+completer's host ms a batch, and the mean wait from submit to the
+stager's snapshot.
+
 ``--verify`` checks every result on a different code path: a value
 against the exact enumeration oracle (``radic_det_oracle``) when its rank
 space holds at most ``ORACLE_MAX_RANKS`` minors, else against the torch
@@ -59,6 +71,7 @@ gradient against ``torch.autograd.grad`` of the torch backend's
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -249,6 +262,38 @@ def _serve_scaled(front, mats, label: str, num: int, backend: str,
     return out
 
 
+def _pipeline_readings(stats: dict) -> str:
+    """The queue's timings of its own pipeline (a zero denominator
+    reads 0)."""
+    def per(num: float, den: float) -> float:
+        return num / den if den > 0 else 0.0
+    busy = stats["stage_s"] - stats["stage_wait_s"]
+    host = per(stats["complete_host_s"], stats["dispatches"])
+    backlog = per(stats["backlog_s"], stats["completed"])
+    return (f"stage_busy_ms={1e3 * per(busy, stats['batches']):.3f} "
+            f"stage_cpu_share={100 * per(stats['stage_cpu_s'], busy):.1f}% "
+            f"complete_host_ms={1e3 * host:.3f} "
+            f"backlog_ms={1e3 * backlog:.3f}")
+
+
+@contextlib.contextmanager
+def _profiled(device: torch.device, path: str):
+    """A profiler over every thread, host and card, that writes its
+    Chrome trace to ``path`` when it stops (nothing without a path)."""
+    if not path:
+        yield
+        return
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts, experimental_config=_ExperimentalConfig(
+            profile_all_threads=True)) as prof:
+        yield
+    prof.export_chrome_trace(path)
+
+
 def _warm_device(device: torch.device, backend: str) -> None:
     """Bring up the card and build the kernel library before the clock
     starts (the reference's warm pass compiles; the port builds once)."""
@@ -346,6 +391,10 @@ def main(argv=None):
                          "front's live plan families so they warm up "
                          "(store first, plan second) before admission "
                          "(on by default when --plan-store is given)")
+    ap.add_argument("--trace-out", type=str, default="", metavar="FILE",
+                    help="async path: profile the timed pass on every "
+                         "thread, host and card, and write its Chrome "
+                         "trace to FILE")
     ap.add_argument("--verify", action="store_true",
                     help="cross-check every result: values against the "
                          "exact oracle (float64 torch past "
@@ -356,6 +405,9 @@ def main(argv=None):
         ap.error("--grad-frac must be in [0, 1]")
     if args.grad_frac > 0 and args.sync:
         ap.error("--grad-frac needs the async or front path (drop --sync)")
+    if args.trace_out and (args.sync or args.workers or args.connect
+                           or args.listen or args.join):
+        ap.error("--trace-out needs the one-queue async path")
     device = resolve_device(args.device)
 
     if args.listen or args.join:
@@ -423,9 +475,10 @@ def main(argv=None):
                       persist_dir=args.plan_store or None) as q:
             # after the queue: its engine points the build at the store
             _warm_device(device, args.backend)
-            t0 = time.perf_counter()
-            dets = _serve_tolerating_sheds(q, mats, grads)
-            wall = time.perf_counter() - t0
+            with _profiled(device, args.trace_out):
+                t0 = time.perf_counter()
+                dets = _serve_tolerating_sheds(q, mats, grads)
+                wall = time.perf_counter() - t0
             stats = q.snapshot()
         print(f"# det_serve[async/{args.policy}]: {args.num} requests, "
               f"backend={args.backend}, device={device}")
@@ -437,7 +490,8 @@ def main(argv=None):
               f"plan_cache={stats['plan_cache']['size']}/"
               f"{stats['plan_cache']['max_plans']} "
               f"store_hits={stats['plan_cache']['store_hits']} "
-              f"store_misses={stats['plan_cache']['store_misses']}")
+              f"store_misses={stats['plan_cache']['store_misses']} "
+              f"{_pipeline_readings(stats)}")
         print("bucket_m,bucket_n,count,batches,ranks,mean_wait_s")
         for (m, n), b in sorted(stats["buckets"].items()):
             print(f"{m},{n},{b['count']},{b['batches']},{b['ranks']},"

@@ -430,3 +430,94 @@ def test_batch_axis_with_exact_capacities_refuses_an_odd_group():
                                rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(got, [float(v) for v in lines[7::2]],
                                rtol=1e-3, atol=1e-4)
+
+
+# -------------------------------------------------- the pipeline's timings
+TIMERS = ("stage_wait_s", "stage_cpu_s", "complete_host_s", "backlog_s")
+STAGER_RANGES = ("queue.plan", "queue.pack", "queue.upload", "queue.launch",
+                 "queue.handoff")
+# ``queue.device_wait`` waits on a card's event: none on the CPU
+COMPLETER_RANGES = ("queue.copy_back", "queue.deliver")
+
+
+def _timed_queue():
+    """A torch-backend queue whose stager blocks on a one-deep pipeline."""
+    return DetQueue(device=CPU, backend="torch", pipeline_depth=1,
+                    policy=BucketPolicy(max_batch=4, mode="never"))
+
+
+def _burst(q, num=48):
+    """Values and every 4th a gradient, all of m <= n, so that every
+    batch goes through the stager and the completer."""
+    mats = _mats(np.random.default_rng(21), num, SHAPES[:-1])
+    grads = [(k % 4 == 0, 1.0) for k in range(num)]
+    for f in q.submit_many(mats, grads):
+        f.result(timeout=120)
+
+
+def test_pipeline_timers_bound_each_other():
+    with _timed_queue() as q:
+        _burst(q)
+        st = q.snapshot()
+        q.reset_stats()
+        zero = q.snapshot()
+    assert "complete_s" not in st
+    assert 0 < st["stage_wait_s"] <= st["stage_s"]
+    # two clocks over one interval: a CPU cannot run past the wall
+    assert 0 < st["stage_cpu_s"] <= st["stage_s"] + 5e-3
+    assert st["complete_host_s"] > 0
+    waits = sum(b["wait_s"] for b in st["buckets"].values())
+    assert 0 <= st["backlog_s"] <= waits
+    assert all(zero[k] == 0.0 for k in TIMERS + ("stage_s",))
+
+
+def test_no_range_is_entered_without_a_profiler(monkeypatch):
+    entered = []
+
+    class Counting(torch.profiler.record_function):
+        def __enter__(self):
+            entered.append(self.name)
+            return super().__enter__()
+
+    monkeypatch.setattr(torch.profiler, "record_function", Counting)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", Counting)
+    with _timed_queue() as q:
+        _burst(q)
+        assert entered == []
+        # a profiler of the calling thread alone: entered, not recorded
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            _burst(q)
+    assert set(STAGER_RANGES + COMPLETER_RANGES) <= set(entered)
+
+
+def test_ranges_lie_on_the_pipeline_threads_and_never_overlap():
+    from torch._C._profiler import _ExperimentalConfig
+    all_threads = _ExperimentalConfig(profile_all_threads=True)
+    with _timed_queue() as q:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU],
+                experimental_config=all_threads) as prof:
+            with torch.profiler.record_function("test.caller"):
+                _burst(q)
+    spans: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith(("queue.", "test.caller")):
+            spans.setdefault(e.name(), []).append(
+                (e.start_thread_id(), e.start_ns(), e.end_ns()))
+    (caller, _, _), = spans.pop("test.caller")
+    assert set(STAGER_RANGES + COMPLETER_RANGES) <= set(spans)
+    assert set(spans) <= set(STAGER_RANGES + COMPLETER_RANGES
+                             + ("queue.device_wait",))
+    threads = {name: {t for t, _, _ in s} for name, s in spans.items()}
+    stager = set.union(*(threads[n] for n in STAGER_RANGES))
+    completer = set.union(*(threads[n] for n in COMPLETER_RANGES))
+    assert len(stager) == len(completer) == 1 and stager != completer
+    assert caller not in stager | completer
+    by_thread: dict[int, list] = {}
+    for s in spans.values():
+        for t, a, b in s:
+            by_thread.setdefault(t, []).append((a, b))
+    for ivs in by_thread.values():
+        ivs.sort()
+        assert all(b0 <= a1 for (_, b0), (a1, _) in zip(ivs, ivs[1:]))

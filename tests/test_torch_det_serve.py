@@ -103,6 +103,27 @@ def test_grad_mix_equals_reference_and_verifies(capsys):
             np.testing.assert_allclose(got, ref_got, rtol=1e-3, atol=1e-4)
 
 
+def test_trace_out_records_the_queue_threads(tmp_path, capsys):
+    """--trace-out writes a trace of every thread: the stager's
+    ``queue.pack`` lies on a thread other than the main one, and the
+    stats line carries the pipeline's readings."""
+    import json
+    import threading
+    path = tmp_path / "trace.json"
+    det_serve.main(["--num", "24", "--device", "cpu", "--trace-out",
+                    str(path)])
+    out = capsys.readouterr().out
+    assert re.search(r"stage_busy_ms=[0-9.]+ stage_cpu_share=[0-9.]+% "
+                     r"complete_host_ms=[0-9.]+ backlog_ms=[0-9.]+$", out,
+                     re.MULTILINE)
+    events = json.loads(path.read_text())["traceEvents"]
+    packs = {e["tid"] for e in events if e.get("name") == "queue.pack"}
+    assert packs and threading.get_native_id() not in packs
+    with pytest.raises(SystemExit):
+        det_serve.main(["--device", "cpu", "--sync", "--trace-out",
+                        str(path)])
+
+
 def test_grad_frac_is_async_only():
     with pytest.raises(SystemExit):
         det_serve.main(["--device", "cpu", "--grad-frac", "0.5", "--sync"])

@@ -27,7 +27,8 @@ per source, all at once) and runs these phases, each printing its lines:
 4. serving end to end: ``repro_torch.launch.det_serve.main`` on 512
    requests up to (8, 32) through the async DetQueue, every result held
    against the plain version in float64, K1's launch count equal to the
-   queue's dispatch count; then a second, uncounted pass under
+   queue's dispatch count and to its copies back enqueued by the stager
+   (``async_copies``); then a second, uncounted pass under
    ``torch.profiler`` for the card's busy share of the serving wall;
 5. K3 (``radic_batched_grad_partial_cuda``, the backward kernel) against
    its plain version in float64, by the serving verify's rule for
@@ -47,7 +48,8 @@ per source, all at once) and runs these phases, each printing its lines:
 7. gradient serving: ``det_serve.main`` on the same 512 requests with
    ``--grad-frac 0.25 --verify`` (every value and gradient checked in
    float64 on another code path), K3's launches equal to the queue's
-   gradient dispatches and K1's to its value dispatches; then an
+   gradient dispatches and K1's to its value dispatches, every dispatch
+   answered through the stager's copy back; then an
    uncounted pass under ``torch.profiler``, as in phase 4;
 8. K4 (``radic_batched_partial_bygrid_cuda``) equal to K1 bit for bit,
    K5 (``unrank_cuda``) equal to its plain version on every rank of
@@ -908,6 +910,9 @@ def phase_serve(errs: Errors) -> dict:
           f"wall={wall:.3f}s")
     check(launches == stats["dispatches"] and launches > 0,
           f"K1 launches {launches} != dispatches {stats['dispatches']}")
+    check(stats["async_copies"] == stats["dispatches"],
+          f"copies back {stats['async_copies']} != dispatches "
+          f"{stats['dispatches']}")
     check(stats["completed"] == 512 and all(d is not None for d in dets),
           "serving left a request unanswered")
 
@@ -1218,6 +1223,9 @@ def phase_grad_serve() -> dict:
           f"K3 launches {k3.launches} != grad dispatches {grads}")
     check(k1.launches == values > 0,
           f"K1 launches {k1.launches} != value dispatches {values}")
+    check(stats["async_copies"] == stats["dispatches"],
+          f"copies back {stats['async_copies']} != dispatches "
+          f"{stats['dispatches']}")
     n_grad = sum(isinstance(d, np.ndarray) for d in dets)
     check(stats["completed"] == 512 and all(d is not None for d in dets),
           "gradient serving left a request unanswered")

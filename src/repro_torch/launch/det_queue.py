@@ -11,12 +11,19 @@ a bounded queue:
 * **stager** snapshots the pending requests, plans buckets (below), pads
   each group into a pinned host stack, starts the upload with
   ``.to(device, non_blocking=True)`` on the current stream, launches the
-  plan's kernel and records a ``torch.cuda.Event`` behind it — without
-  waiting — then stages the next batch.  The pinned stack rides with the
-  batch until it completes, so the upload never reads freed memory.
-* **completer** waits on the oldest in-flight batch's event, copies its
-  results to the host and resolves the per-request futures (and the
-  ``poll()`` response queue).
+  plan's kernel, enqueues the copy of its answers back into pinned host
+  memory behind it (``.to("cpu", non_blocking=True)``, from torch's
+  caching host allocator) and records a ``torch.cuda.Event`` behind the
+  copy — without waiting — then stages the next batch.  The pinned stack
+  rides with the batch until it completes, so the upload never reads
+  freed memory.
+* **completer** waits on the oldest in-flight batch's event, which marks
+  the end of its kernel and of its copy back, then only reads host
+  memory: it unpacks the answers and resolves the per-request futures
+  (and the ``poll()`` response queue).  It makes no copy call to the
+  driver and no stream synchronisation, so it never stalls the stager's
+  driver calls; a pageable copy there would return only once every batch
+  launched after its own had run.
 
 Re-bucketing is dynamic (:class:`BucketPolicy`), with the reference's
 decisions: under load, under-filled buckets that share a row count ``m``
@@ -44,12 +51,15 @@ The pipeline times itself.  ``stats`` (``snapshot()``) carries the
 stager's ``stage_s`` a snapshot, of which ``stage_wait_s`` blocked on the
 full in-flight queue and ``stage_cpu_s`` ran on a CPU
 (``time.thread_time``); the completer's ``complete_host_s``, from a
-batch's event to its futures resolved; and ``backlog_s``, each delivered
-request's wait from submit to the stager's snapshot.  While a profiler
-runs, each phase is a ``torch.profiler`` range on the device trace's
-clock: ``queue.plan``, ``queue.pack``, ``queue.upload``, ``queue.launch``
-and ``queue.handoff`` on the stager, ``queue.device_wait``,
-``queue.copy_back`` and ``queue.deliver`` on the completer.  No range
+batch's event to its futures resolved (the unpack and the delivery, no
+copy); ``backlog_s``, each delivered request's wait from submit to the
+stager's snapshot; and ``async_copies``, the batches whose answers came
+back through a copy the stager enqueued (every dispatch on a card, none
+on the CPU).  While a profiler runs, each phase is a ``torch.profiler``
+range on the device trace's clock: ``queue.plan``, ``queue.pack``,
+``queue.upload``, ``queue.launch``, ``queue.copy_back`` (a card's only)
+and ``queue.handoff`` on the stager, ``queue.device_wait`` (a card's
+only), ``queue.unpack`` and ``queue.deliver`` on the completer.  No range
 encloses another, so a gap of the card is put down to one phase; a
 profiler sees them only if it records every thread
 (``profile_all_threads``), and without a profiler none is entered.
@@ -605,7 +615,7 @@ class DetQueue:
             "merged_requests": 0, "padded_slots": 0, "ranks": 0,
             "responses_dropped": 0, "shed": 0, "backlog_peak": 0,
             "stage_s": 0.0, "stage_wait_s": 0.0, "stage_cpu_s": 0.0,
-            "complete_host_s": 0.0, "backlog_s": 0.0,
+            "complete_host_s": 0.0, "backlog_s": 0.0, "async_copies": 0,
             "buckets": {},
         }
 
@@ -927,16 +937,22 @@ class DetQueue:
                                 dev, cts = self._upload(host)
                             # async dispatch: the launch only enqueues
                             # device work (grad batches enter the plan's
-                            # VJP, value batches its forward); the event
-                            # marks its end
+                            # VJP, value batches its forward)
                             with _range("queue.launch"):
                                 exe = self._plan(plan.shape, plan.capacity)
                                 dets = exe.grad(dev, cts) if plan.grad \
                                     else exe(dev)
-                                done = None
-                                if self.device.type == "cuda":
+                            done = None
+                            if dets.device.type == "cuda":
+                                # the copy back rides the kernel's stream
+                                # into pinned memory, and the event marks
+                                # the end of both
+                                with _range("queue.copy_back"):
+                                    stream = torch.cuda.current_stream(
+                                        dets.device)
+                                    dets = dets.to("cpu", non_blocking=True)
                                     done = torch.cuda.Event()
-                                    done.record()
+                                    done.record(stream)
                         except Exception as e:  # noqa: BLE001 — batch-local
                             # e.g. C(n, m) overflowing int32 for one weird
                             # shape: fail this batch, keep serving the rest
@@ -949,6 +965,7 @@ class DetQueue:
                             st["batches"] += 1
                             st["dispatches"] += 1  # m > n handled above
                             st["grad_dispatches"] += int(plan.grad)
+                            st["async_copies"] += int(done is not None)
                             st["merged_requests"] += plan.merged_count
                             st["padded_slots"] += (plan.capacity
                                                    - len(plan.requests))
@@ -981,23 +998,31 @@ class DetQueue:
                 if isinstance(item, _Shutdown):
                     return
                 plan, dets, done, host = item
+                del item
                 try:
+                    # on a card the event marks the end of the kernel and
+                    # of the stager's copy back: past it, the answers lie
+                    # in host memory and nothing here calls the driver
                     if done is not None:
                         with _range("queue.device_wait"):
                             done.synchronize()
                     t_host = time.perf_counter() - carried
-                    with _range("queue.copy_back"):
-                        vals = dets.cpu().numpy()
+                    with _range("queue.unpack"):
+                        vals = dets.numpy()
                         k = len(plan.requests)
-                        # grad batches deliver the (m, n) arrays
-                        # themselves; value batches unpack the
+                        # grad batches deliver (m, n) arrays in one
+                        # ordinary host copy, never views of the pinned
+                        # buffer, which goes back to the allocator for a
+                        # later batch; value batches unpack the
                         # (capacity,) dets to floats
-                        outs = list(vals[:k]) if plan.grad \
+                        outs = list(vals[:k].copy()) if plan.grad \
                             else vals[:k].tolist()
                 except Exception as e:  # noqa: BLE001 — batch-local
                     self._fail_plan(plan, e)
                     continue
-                del host  # the upload has completed: release the pin
+                # the upload and the copy back have completed: release
+                # the pinned buffers
+                del host, dets, vals
                 m, n = plan.shape
                 with _range("queue.deliver"):
                     carried = self._deliver(plan, outs,

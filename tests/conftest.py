@@ -21,6 +21,11 @@ if settings is not None:
     settings.load_profile("ci")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

@@ -436,8 +436,10 @@ def test_batch_axis_with_exact_capacities_refuses_an_odd_group():
 TIMERS = ("stage_wait_s", "stage_cpu_s", "complete_host_s", "backlog_s")
 STAGER_RANGES = ("queue.plan", "queue.pack", "queue.upload", "queue.launch",
                  "queue.handoff")
-# ``queue.device_wait`` waits on a card's event: none on the CPU
-COMPLETER_RANGES = ("queue.copy_back", "queue.deliver")
+COMPLETER_RANGES = ("queue.unpack", "queue.deliver")
+# a card's only: the stager's copy back behind the kernel and the
+# completer's wait on the batch's event; none on the CPU
+CARD_RANGES = ("queue.copy_back", "queue.device_wait")
 
 
 def _timed_queue():
@@ -506,9 +508,8 @@ def test_ranges_lie_on_the_pipeline_threads_and_never_overlap():
             spans.setdefault(e.name(), []).append(
                 (e.start_thread_id(), e.start_ns(), e.end_ns()))
     (caller, _, _), = spans.pop("test.caller")
-    assert set(STAGER_RANGES + COMPLETER_RANGES) <= set(spans)
-    assert set(spans) <= set(STAGER_RANGES + COMPLETER_RANGES
-                             + ("queue.device_wait",))
+    assert set(spans) == set(STAGER_RANGES + COMPLETER_RANGES)
+    assert not set(spans) & set(CARD_RANGES)
     threads = {name: {t for t, _, _ in s} for name, s in spans.items()}
     stager = set.union(*(threads[n] for n in STAGER_RANGES))
     completer = set.union(*(threads[n] for n in COMPLETER_RANGES))
@@ -521,3 +522,109 @@ def test_ranges_lie_on_the_pipeline_threads_and_never_overlap():
     for ivs in by_thread.values():
         ivs.sort()
         assert all(b0 <= a1 for (_, b0), (a1, _) in zip(ivs, ivs[1:]))
+
+
+# ------------------------------------------------------ the copy back
+def test_no_copy_back_is_enqueued_on_the_cpu():
+    """The CPU backends keep the answers on the host: no batch comes back
+    through an enqueued copy, and ``reset_stats`` zeroes the count."""
+    with _timed_queue() as q:
+        _burst(q)
+        st = q.snapshot()
+        q.reset_stats()
+        zero = q.snapshot()
+    assert st["dispatches"] > 0 and st["grad_dispatches"] > 0
+    assert st["async_copies"] == 0
+    assert zero["async_copies"] == 0 and zero["dispatches"] == 0
+
+
+def test_delivered_gradients_outlive_a_reused_output_buffer(monkeypatch):
+    """Gradient arrays are delivered as host copies: they keep their
+    values after 20 later batches of the same shape went through, even
+    where every batch's answers land in one reused buffer (as a pinned
+    buffer from the caching host allocator is reused), and no two of
+    them share memory."""
+    reused: dict[tuple, torch.Tensor] = {}
+    plan_of = DetQueue._plan
+
+    class OneBuffer:
+        def __init__(self, exe):
+            self.exe = exe
+
+        def __call__(self, A):
+            return self.exe(A)
+
+        def grad(self, A, ct):
+            out = self.exe.grad(A, ct)
+            buf = reused.setdefault(tuple(out.shape), torch.empty_like(out))
+            return buf.copy_(out)
+
+    monkeypatch.setattr(DetQueue, "_plan",
+                        lambda self, *a: OneBuffer(plan_of(self, *a)))
+    rng = np.random.default_rng(5)
+    pol = BucketPolicy(max_batch=4, mode="never", pin_capacity=True)
+
+    def batch():
+        return [rng.normal(size=(3, 7)).astype(np.float32) for _ in range(4)]
+
+    with DetQueue(device=CPU, policy=pol) as q:
+        mats = batch()
+        first = [f.result(timeout=120)
+                 for f in q.submit_many(mats, [(True, 1.0)] * 4)]
+        kept = [g.copy() for g in first]
+        for _ in range(20):
+            for f in q.submit_many(batch(), [(True, 1.0)] * 4):
+                f.result(timeout=120)
+        st = q.snapshot()
+    assert st["grad_dispatches"] == 21 and len(reused) == 1
+    plan = DetEngine().plan(3, 7, capacity=4, device=CPU)
+    want = plan.grad(torch.from_numpy(np.stack(mats)), torch.ones(4))
+    for g, k, w in zip(first, kept, want.numpy()):
+        assert g.shape == (3, 7)
+        np.testing.assert_array_equal(g, k)
+        np.testing.assert_array_equal(g, w)
+    assert not any(np.shares_memory(a, b)
+                   for i, a in enumerate(first) for b in first[i + 1:])
+    assert not any(np.shares_memory(g, buf.numpy())
+                   for g in first for buf in reused.values())
+
+
+@pytest.mark.card
+def test_on_the_card_answers_come_back_through_the_stager_s_copy():
+    """On a card every batch's answers come back through the copy the
+    stager enqueued behind its kernel, and equal the batched evaluator's
+    on the same padded stack bit for bit, values and gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the copy back into pinned memory is a "
+                    "card's only")
+    rng = np.random.default_rng(9)
+    shapes, cap, num = [(3, 8), (5, 24), (8, 32)], 16, 30
+    mats = [rng.normal(size=shapes[k % 3]).astype(np.float32)
+            for k in range(num)]
+    grads = [(k % 4 == 1, 1.0) for k in range(num)]
+    pol = BucketPolicy(max_batch=cap, mode="never", pin_capacity=True)
+    with DetQueue(policy=pol, device="cuda") as q:
+        got = [f.result(timeout=600) for f in q.submit_many(mats, grads)]
+        st = q.snapshot()
+    assert st["dispatches"] == 6 and st["async_copies"] == st["dispatches"]
+    for shape in shapes:
+        for grad in (False, True):
+            idx = [k for k in range(num)
+                   if mats[k].shape == shape and grads[k][0] == grad]
+            stack = torch.zeros((cap, *shape))
+            stack[:len(idx)] = torch.from_numpy(np.stack([mats[k]
+                                                          for k in idx]))
+            stack = stack.cuda().requires_grad_(grad)
+            dets = radic_det_batched(stack, device="cuda")
+            if grad:
+                ct = torch.zeros(cap, device="cuda")
+                ct[:len(idx)] = 1.0
+                want = torch.autograd.grad(dets, stack, ct)[0].cpu().numpy()
+                for j, k in enumerate(idx):
+                    np.testing.assert_array_equal(got[k], want[j])
+            else:
+                want = dets.cpu().tolist()
+                assert [got[k] for k in idx] == want[:len(idx)]
+    arrays = [g for g in got if isinstance(g, np.ndarray)]
+    assert not any(np.shares_memory(a, b)
+                   for i, a in enumerate(arrays) for b in arrays[i + 1:])

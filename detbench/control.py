@@ -1,6 +1,10 @@
 """The control of the comparison that decides ``correct``: the plain
 reference put in the program's place, in bfloat16 (the precision below
 the float32 the configurations state), on the requests a run compares.
+A cell whose configuration names a driver takes that driver's
+``control_readings`` (``lm_serve``: the reference with its weights
+rounded to the precision below the configuration's, beside the
+program's own reading).
 
     python3 detbench/control.py --workload <cell> --seeds 1,2,3
 
@@ -21,16 +25,20 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 if __name__ == "__main__":
-    sys.path.insert(0, str(HERE.parent))
+    sys.path[:0] = [str(HERE.parent), str(HERE.parent / "src")]
 
-from detbench.harness import compare  # noqa: E402
+from detbench.harness import cell_driver, compare  # noqa: E402
 from detbench.traffic import (Sampler, Traffic, load_config,  # noqa: E402
                               load_workload)
 
 
 def control_readings(cell: str, seed: int, *, device: str,
                      root: Path = HERE) -> dict:
-    """The control's worst errors on one seed, each beside its limit."""
+    """The control's worst errors on one seed, each beside its limit (a
+    cell whose configuration names a driver: that driver's control)."""
+    driver = cell_driver(cell, root)
+    if driver is not None:
+        return driver.control_readings(cell, seed, device=device, root=root)
     import torch
     workload = load_workload(cell, root)
     limits = load_config(workload.config, root)["guarantees"]

@@ -13,6 +13,11 @@ stops before its window.
 After the window the program's state is freed and a sample of the
 answers, drawn from the seed, is compared with the plain reference in
 float64 (``reference.py``), on the matrices the generator makes again.
+
+That is the Radic service's path, taken where a cell's configuration
+names no ``driver``.  A configuration that names one is run by
+``drivers/<driver>.py``, whose ``run_cell`` returns the same result line
+(``result_line``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import gc
 import importlib.util
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -33,6 +39,7 @@ from detbench import reference, tracer
 from detbench.traffic import Sampler, Traffic, load_config, load_workload
 
 HERE = Path(__file__).resolve().parent
+DRIVER_NAME = re.compile(r"[A-Za-z0-9_]{1,64}")
 
 POLL_S = 0.05          # longest wait for an answer in one poll
 SLICE_S = 10.0         # the window's rate is logged by slices this long
@@ -59,6 +66,12 @@ class Run:
     launches: tuple[dict, dict] = ({}, {})
     traced: dict | None = None
     memory_peak_bytes: int | None = None
+    # a language model's run: tokens the window prefilled and decoded,
+    # the ``ModelConfig`` it served and the device it ran on
+    tokens_prefill: int = 0
+    tokens_decode: int = 0
+    model: object = None
+    device: str | None = None
 
     def delta(self, key: str) -> float:
         """A queue counter's change over the window."""
@@ -343,6 +356,28 @@ def metric_reader(name: str, root: Path = HERE):
     return mod.read
 
 
+def cell_driver(cell: str, root: Path = HERE):
+    """The module ``drivers/<driver>.py`` that the cell's configuration
+    names under ``driver``, loaded by path; None where it names none."""
+    w = json.loads((root / "workloads" / f"{cell}.json").read_text())
+    cfg_path = root / "configs" / f"{w['config']}.json"
+    name = json.loads(cfg_path.read_text()).get("driver")
+    if name is None:
+        return None
+    path = root / "drivers" / f"{name}.py"
+    if not (isinstance(name, str) and DRIVER_NAME.fullmatch(name)
+            and path.is_file()):
+        raise ValueError(f"{cfg_path}: driver {name!r} has no file "
+                         f"drivers/<driver>.py under {root}")
+    spec = importlib.util.spec_from_file_location(f"detbench_driver_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    # registered: dataclasses look a class's module up in sys.modules
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def read_metric(name: str, run: Run, root: Path = HERE):
     """The metric's reader, ``metrics/<name>.py``, over the run."""
     return metric_reader(name, root)(run)
@@ -359,7 +394,13 @@ def cell_metrics(bench: dict, cell: str, trace: bool) -> list[dict]:
 def run_cell(cell: str, seed: int, seconds: float, trace: bool, *,
              bench: dict, device: str = "cuda", backend: str | None = None,
              t_start: float | None = None, root: Path = HERE) -> dict:
-    """One run → the result line's object (``checks`` last)."""
+    """One run → the result line's object (``checks`` last), by the
+    driver the cell's configuration names, else by the Radic queue's
+    path below."""
+    driver = cell_driver(cell, root)
+    if driver is not None:
+        return driver.run_cell(cell, seed, seconds, trace, bench=bench,
+                               device=device, t_start=t_start, root=root)
     import torch
     workload = load_workload(cell, root)
     cfg = load_config(workload.config, root)
@@ -372,7 +413,16 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, *,
     worst = compare(workload, Traffic(workload, seed), sample, device)
     log(f"reference: {worst.pop('compared')} answers compared in "
         f"{time.perf_counter() - t0:.3f} s")
-    limits = cfg["guarantees"]
+    return result_line(run, worst, cfg["guarantees"], cell=cell, trace=trace,
+                       bench=bench, device=device, root=root)
+
+
+def result_line(run: Run, worst: dict[str, float], limits: dict, *,
+                cell: str, trace: bool, bench: dict, device: str,
+                root: Path = HERE) -> dict:
+    """The result line's object (``checks`` last) of a run whose window
+    has closed and whose compared numbers are ``worst``."""
+    import torch
     # an error that is no finite number reads as the largest float, so
     # that the line stays strict JSON
     checks = {k: {"value": v if math.isfinite(v) else sys.float_info.max,

@@ -5,10 +5,12 @@ import hashlib
 import numpy as np
 import pytest
 
+from conftest import radic_mixes
 from detbench.traffic import (BLOCK_ROUNDS, Sampler, Traffic,
                               load_workload, workload_from_dict)
 
-CELLS = ("narrow.values", "wide.values", "narrow.mixed", "wide.near")
+# every Radic traffic mix kept, a cell's or one kept for a later cell
+CELLS = radic_mixes()
 SEEDS = (0, 7, 2**31 + 11, 2**33 + 5, -3)
 
 

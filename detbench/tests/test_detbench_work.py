@@ -5,10 +5,12 @@ from math import comb
 
 import pytest
 
+from conftest import radic_mixes
 from detbench import work
 from detbench.traffic import load_workload
 
-CELLS = ("narrow.values", "wide.values", "narrow.mixed", "wide.near")
+# every Radic traffic mix kept, a cell's or one kept for a later cell
+CELLS = radic_mixes()
 
 
 def prefix_tree_flops(m: int, n: int) -> int:

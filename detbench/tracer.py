@@ -12,7 +12,9 @@ turns them into what the per-layer readers take:
   recorded launch), and a copy's by the copies the queue's counters say it
   made;
 * busy time, the union of the recorded intervals plus the time of the
-  lost records, so that lost records do not read as idle time;
+  lost records, so that lost records do not read as idle time (the
+  device's copies of host ranges are no device work: they are left
+  out);
 * the breakdown: the device operations that took most time, and the
   longest idle gaps, each named by the host operations that overlap it
   most.
@@ -88,8 +90,23 @@ def _collect(prof) -> Events:
             else:
                 hn.append(e.name); hs.append(s); he.append(end)
     f = np.float64
-    return Events(dn, np.asarray(ds, f), np.asarray(de, f),
-                  hn, np.asarray(hs, f), np.asarray(he, f))
+    return without_annotations(Events(dn, np.asarray(ds, f),
+                                      np.asarray(de, f), hn,
+                                      np.asarray(hs, f), np.asarray(he, f)))
+
+
+def without_annotations(ev: Events) -> Events:
+    """The events without the device timeline's copies of host ranges: a
+    ``record_function`` range that encloses launches is mirrored on the
+    device under its own name (a user annotation), and would read as
+    device work over the whole range.  A kernel or copy never bears the
+    name of a host event."""
+    host = set(ev.host_name)
+    keep = [i for i, n in enumerate(ev.dev_name) if n not in host]
+    if len(keep) == len(ev.dev_name):
+        return ev
+    return Events([ev.dev_name[i] for i in keep], ev.dev_start[keep],
+                  ev.dev_end[keep], ev.host_name, ev.host_start, ev.host_end)
 
 
 class Trace:

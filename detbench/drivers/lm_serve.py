@@ -8,10 +8,12 @@ vocabulary slice).  Beside them: its ``source`` and ``source_settings``
 (the published config's keys and numbers), those keys at the top level
 as they are run, ``assumed``, ``deployment``, the compute ``dtype``, a
 plain ``reference`` module (a path under the benchmark's root) and the
-``guarantees`` (``logit_err``).  A workload (``workloads/<cell>.json``)
-gives ``config``, ``loop: "closed"``, ``batch`` (sequences served
-together), ``lengths`` (``[prompt_len, gen]`` pairs: batch k takes pair
-k mod S), ``check_sequences`` and ``check_steps``.
+``guarantees`` (``logit_err``); where its layers are not one family's
+block, a ``layers`` block that ``lm_work.file_plan`` counts.  A workload
+(``workloads/<cell>.json``) gives ``config``, ``loop: "closed"``,
+``batch`` (sequences served together), ``lengths`` (``[prompt_len,
+gen]`` pairs: batch k takes pair k mod S), ``check_sequences`` and
+``check_steps``.
 
 Set-up builds the model (``build_model``), fills every parameter from
 the seed (``draw_``: the benchmark's weights, never the program's own
@@ -49,7 +51,7 @@ from pathlib import Path
 
 import numpy as np
 
-from detbench import harness, tracer
+from detbench import harness, lm_work, tracer
 from detbench.traffic import seed_entropy
 
 # the published config's keys → the ``ModelConfig`` fields that hold them;
@@ -62,9 +64,10 @@ HF_FIELDS = {
     "rms_norm_eps": "norm_eps", "tie_word_embeddings": "tie_embeddings",
     "hidden_act": "act",
 }
-# families served by prefill and decode alone (vlm needs image
-# embeddings, audio an encoder's frames: neither is made here)
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# families that need inputs beside the tokens, which are not made here
+# (vlm image embeddings, audio an encoder's frames); every other family
+# is served by prefill and decode alone
+UNSERVED = ("vlm", "audio")
 # the precision below each compute dtype: the control's
 CONTROL_DTYPE = {"float32": "bfloat16", "bfloat16": "float8_e4m3fn",
                  "float16": "float8_e4m3fn"}
@@ -130,9 +133,9 @@ def model_config(cfg: dict, where: str = "config"):
         raise ValueError(f"{where}: overrides name no ModelConfig field: "
                          f"{sorted(unknown)}")
     mcfg = get_config(cfg["arch"]).replace(**cfg["overrides"])
-    if mcfg.family not in FAMILIES:
+    if mcfg.family in UNSERVED:
         raise ValueError(f"{where}: the {mcfg.family} family is not served "
-                         f"by lm_serve (only {FAMILIES})")
+                         "by lm_serve (it needs inputs beside the tokens)")
     if mcfg.dtype != cfg["dtype"]:
         raise ValueError(f"{where}: states dtype {cfg['dtype']}, the program "
                          f"would compute in {mcfg.dtype}")
@@ -155,6 +158,8 @@ def load_config(name: str, root: Path) -> tuple[dict, object]:
                          "module under the benchmark's root")
     if float(cfg["guarantees"]["logit_err"]) <= 0:
         raise ValueError(f"{path}: needs a logit_err limit > 0")
+    if "layers" in cfg:
+        lm_work.file_plan(cfg, str(path))
     return cfg, model_config(cfg, str(path))
 
 

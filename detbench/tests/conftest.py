@@ -47,23 +47,26 @@ def radic_mixes(root: Path = REPO / "detbench") -> list[str]:
 
 def add_lm_fixture(tmp_path: Path) -> types.SimpleNamespace:
     """A checkout in ``tmp_path``: ``detbench/`` copied, the fixture's
-    configurations, workloads and reference added as files, and its
-    entries appended to a copy of BENCHMARK.json (its cells on
-    ``idle_share``'s list, and ``mfu``)."""
+    configurations that its ``bench.json`` names, its workloads and
+    reference added as files, and its entries appended to a copy of
+    BENCHMARK.json (its cells on ``idle_share``'s list, and ``mfu``)."""
     repo = tmp_path / "repo"
     root = repo / "detbench"
     shutil.copytree(REPO / "detbench", root,
                     ignore=shutil.ignore_patterns("__pycache__"))
+    extra = json.loads((FIXTURES / "bench.json").read_text())
+    named = {Path(c["file"]).name for c in extra["configs"]}
     added = []
     for sub in ("configs", "workloads", "references"):
         for f in sorted((FIXTURES / sub).iterdir()):
+            if sub == "configs" and f.name not in named:
+                continue
             dest = root / sub / f.name
             assert not dest.exists(), f"the fixture overwrites {dest}"
             dest.parent.mkdir(exist_ok=True)
             shutil.copy(f, dest)
             added.append(dest)
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
-    extra = json.loads((FIXTURES / "bench.json").read_text())
     cells = [w["name"] for w in extra["workloads"]]
     bench["configs"] += extra["configs"]
     bench["workloads"] += extra["workloads"]

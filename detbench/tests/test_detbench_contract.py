@@ -167,6 +167,61 @@ def test_metrics_have_readers_and_move_what_their_cells_report():
     assert len(layers) >= 5
 
 
+# every language-model configuration file that states its layers, the
+# benchmark's and its tests' fixtures
+LAYERED = sorted(p for d in (DETBENCH / "configs",
+                             DETBENCH / "tests" / "fixtures" / "configs")
+                 for p in d.glob("*.json") if "layers" in _json(p))
+PATTERN_FIXTURE = (DETBENCH / "tests" / "fixtures" / "configs"
+                   / "nemotron3_nano_13l.json")
+
+
+@pytest.mark.parametrize("path", LAYERED,
+                         ids=lambda p: str(p.relative_to(DETBENCH)))
+def test_a_layers_block_names_keys_of_its_file(path):
+    """Every size a part names is a top-level key of the file, every
+    letter of the pattern has a kind, and the pattern as run is a
+    contiguous slice of the published one, ``num_hidden_layers`` long."""
+    from detbench import lm_work
+    plan = lm_work.file_plan(_json(path), str(path))
+    assert len(plan.layers) == _json(path)["num_hidden_layers"]
+
+
+def _break_layers(d: dict, how: str) -> str:
+    """Break the fixture's layers block one way → the message's words."""
+    kinds = d["layers"]["kinds"]
+    if how == "unknown_key":
+        kinds["M"][0]["heads"] = "mamba_heads"
+        return "no top-level key"
+    if how == "letter_without_kind":
+        del kinds["*"]
+        return "have no kind"
+    if how == "no_slice":
+        d["hybrid_override_pattern"] = "MMEMEM*EMEMEM"
+        return "no contiguous slice"
+    if how == "other_depth":
+        d["num_hidden_layers"] = 12
+        return "num_hidden_layers"
+    if how == "literal_width":
+        kinds["E"][0]["width"] = 1856
+        return "must name a top-level key"
+    raise AssertionError(how)
+
+
+@pytest.mark.parametrize("how", ["unknown_key", "letter_without_kind",
+                                 "no_slice", "other_depth", "literal_width"])
+def test_a_broken_layers_block_fails_with_its_path(tmp_path, how):
+    from detbench import lm_work
+    d = _json(PATTERN_FIXTURE)
+    words = _break_layers(d, how)
+    path = tmp_path / "configs" / PATTERN_FIXTURE.name
+    path.parent.mkdir()
+    path.write_text(json.dumps(d))
+    with pytest.raises(ValueError, match=re.escape(str(path))) as err:
+        lm_work.file_plan(_json(path), str(path))
+    assert words in str(err.value)
+
+
 def _imports(path: Path) -> set[str]:
     tree = ast.parse(path.read_text())
     out = set()
@@ -189,7 +244,8 @@ def test_the_reference_imports_torch_only():
     assert _imports(DETBENCH / "reference.py") <= {"__future__", "torch"}
     assert _imports(DETBENCH / "work.py") <= {"__future__", "functools",
                                               "math"}
-    assert _imports(DETBENCH / "lm_work.py") <= {"__future__"}
+    assert _imports(DETBENCH / "lm_work.py") <= {"__future__",
+                                                 "dataclasses"}
     for p in sorted((DETBENCH / "configs").glob("*.json")):
         ref = _json(p).get("reference")
         if ref is not None:

@@ -5,8 +5,11 @@ comparison and what makes it fail; the LM yardstick (``lm_work.py``,
 benchmark as new files and entries only."""
 
 import copy
+import importlib.util
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import types
@@ -16,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import REPO, add_lm_fixture
+from conftest import FIXTURES, REPO, add_lm_fixture
 from detbench import harness, lm_work, tracer
 
 SMOKE = "yi34b_smoke.serve"
@@ -250,10 +253,15 @@ def _toy(**kw):
     return types.SimpleNamespace(**{**base, **kw})
 
 
+def _layer_weights(c) -> int:
+    plan = lm_work.family_plan(c)
+    return sum(part.weights(plan.d_model) for part in plan.layers[0])
+
+
 def test_lm_work_by_hand_at_a_two_layer_toy():
     c = _toy()
     # a token: attention 2·4·4 + 2·4·2, GLU 3·4·8 → 144 weights a layer
-    assert lm_work.layer_weights(c) == 144
+    assert _layer_weights(c) == 144
     # prefill of 3: 2·144·2 a token, 4·2·2·t a layer at context t, the
     # head 2·4·10 once
     assert lm_work.prefill_flops(c, 3) == 576 * 3 + 32 * (1 + 2 + 3) + 80
@@ -269,11 +277,11 @@ def test_lm_work_by_hand_at_a_two_layer_toy():
     # SSM: in_proj 4·(16 + 4 + 2), conv 4·12, out_proj 8·4; the state
     # (2 heads of 4 × 2) updated and read, 2·2·16 a token
     s = _toy(family="ssm")
-    assert lm_work.layer_weights(s) == 88 + 48 + 32
+    assert _layer_weights(s) == 88 + 48 + 32
     assert lm_work.prefill_flops(s, 3) == 3 * 2 * (2 * 168 + 64) + 80
     # experts: the router and the one routed to
     m = _toy(family="moe", n_experts=4, top_k=1)
-    assert lm_work.layer_weights(m) == 48 + 4 * 4 + 96
+    assert _layer_weights(m) == 48 + 4 * 4 + 96
 
 
 @pytest.mark.parametrize("a,b,window", [(1, 9, 4), (3, 3, None), (5, 12, 4),
@@ -284,66 +292,412 @@ def test_lm_work_sums_the_positions_seen(a, b, window):
     assert lm_work._seen(a, b, window) == want
 
 
-def _archs():
+def _lm_serve():
+    """The LM driver's module, loaded by path as ``harness.cell_driver``
+    loads it."""
+    path = REPO / "detbench" / "drivers" / "lm_serve.py"
+    spec = importlib.util.spec_from_file_location("detbench_lm_serve_test",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _archs() -> list[str]:
+    """The registry's archs whose family has a family plan."""
+    from repro_torch.configs.registry import ARCHS, get_config
+    return [a for a in ARCHS if get_config(a).family in lm_work.FAMILIES]
+
+
+def _lm_files() -> list[Path]:
+    """Every language-model configuration file of the benchmark and of
+    its tests' fixtures whose arch the program's registry holds."""
     from repro_torch.configs.registry import ARCHS
-    return list(ARCHS)
+    root = REPO / "detbench"
+    out = []
+    for d in (root / "configs", root / "tests" / "fixtures" / "configs"):
+        for p in sorted(d.glob("*.json")):
+            cfg = json.loads(p.read_text())
+            if cfg.get("driver") == "lm_serve" and cfg.get("arch") in ARCHS:
+                out.append(p)
+    return out
+
+
+def _program_flops(c, B: int, P: int, device: str) -> tuple[int, int]:
+    """``FlopCounterMode``'s totals of the program's prefill of ``B``
+    prompts of ``P`` tokens and of one decode step after it."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    model = build_model(c, device=device)
+    batch = {"tokens": torch.zeros((B, P), dtype=torch.long, device=device)}
+    extra = 0
+    if c.prefix_embeds:
+        extra = c.n_patches
+        batch["prefix_embeds"] = torch.zeros(
+            (B, c.n_patches, c.d_model), dtype=c.adtype, device=device)
+    if c.family == "audio":
+        batch["frame_embeds"] = torch.zeros(
+            (B, c.n_frames, c.d_model), dtype=c.adtype, device=device)
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
+        out = make_prefill_step(model, P + extra + 1)(batch)
+    prefill = fc.get_total_flops()
+    cache = (model.init_cache(B, P + 1) if c.family == "audio"
+             else out[1])
+    tok = {"tokens": torch.zeros((B, 1), dtype=torch.int32, device=device)}
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
+        make_decode_step(model)(cache, tok)
+    return prefill, fc.get_total_flops()
+
+
+def _hold_count(c, config=None, *, device="meta", P=1100, B=2) -> None:
+    """The count (the file's layers, else the family's) at or under the
+    program's.  The counter sees no elementwise op: a Mamba-2 state's
+    update in a decode step is left out of the comparison."""
+    prefill, decode = _program_flops(c, B, P, device)
+    assert B * lm_work.prefill_flops(c, P, config) <= prefill
+    update = sum(2 * m.heads * m.head_dim * m.state
+                 for layer in lm_work.plan(c, config).layers for m in layer
+                 if isinstance(m, lm_work.Mamba2))
+    assert B * (lm_work.decode_flops(c, P, 1, config) - update) <= decode
+
+
+# a prompt short enough for a model at its published widths on the CPU
+CPU_PROMPT = 16
+
+
+def _needs_data(e: RuntimeError) -> bool:
+    """Whether ``meta`` refused an operation because its result depends
+    on the values (a dropless router's counts, ``.item()``, ``nonzero``):
+    torch's message then names meta.  Any other error is a fault."""
+    return re.search(r"meta tensor|register_meta", str(e), re.I) is not None
+
+
+def _every_kind(cfg: dict, depth: int) -> dict:
+    """The configuration cut to the fewest layers that still hold every
+    kind: with a ``layers`` block, the shortest run of its pattern that
+    holds every letter (``MEMEM*EMEMEM*`` → ``EM*``), written to the
+    pattern's key and to any override that holds the pattern as run; with
+    no such override the program cuts its own pattern by depth, so the
+    shortest prefix that holds every letter.  Without a block, ``depth``
+    layers of the family's.  ``num_hidden_layers`` and ``overrides``'
+    ``n_layers`` follow."""
+    out = copy.deepcopy(cfg)
+    if "layers" in cfg:
+        pattern = cfg[cfg["layers"]["pattern"]]
+        held = [k for k, v in cfg["overrides"].items()
+                if v in (pattern, list(pattern))]
+        starts = range(len(pattern)) if held else (0,)
+        cut = min((pattern[i:j] for i in starts
+                   for j in range(i + 1, len(pattern) + 1)
+                   if set(pattern[i:j]) == set(pattern)), key=len)
+        out[cfg["layers"]["pattern"]] = cut
+        for k in held:
+            out["overrides"][k] = (cut if isinstance(cfg["overrides"][k], str)
+                                   else list(cut))
+        depth = len(cut)
+    out["overrides"]["n_layers"] = depth
+    if "num_hidden_layers" in cfg:
+        out["num_hidden_layers"] = depth
+    return out
 
 
 @pytest.mark.parametrize("arch", _archs())
 def test_lm_work_counts_no_more_than_the_program_does(arch):
     """``mfu`` cannot pass 100 %: at every registry arch's published
-    widths (a whole period of its layers, on ``meta``), the count is at
-    most the products the program's prefill and decode step run
-    (``FlopCounterMode``), so at most what the card computed.  The
-    counter sees no elementwise op: an SSM state's update is left out of
-    the comparison."""
-    from torch.utils.flop_counter import FlopCounterMode
-
+    widths (a whole period of its layers, on ``meta``), the family's
+    count is at most the products the program's prefill and decode step
+    run (``FlopCounterMode``), so at most what the card computed."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models import build_model
     c = get_config(arch)
-    c = c.replace(n_layers=c.local_global_period or 2)
-    model = build_model(c, device="meta")
-    B, P = 2, 1100
-    batch = {"tokens": torch.zeros((B, P), dtype=torch.long, device="meta")}
-    extra = 0
-    if c.prefix_embeds:
-        extra = c.n_patches
-        batch["prefix_embeds"] = torch.zeros(
-            (B, c.n_patches, c.d_model), dtype=c.adtype, device="meta")
-    if c.family == "audio":
-        batch["frame_embeds"] = torch.zeros(
-            (B, c.n_frames, c.d_model), dtype=c.adtype, device="meta")
-    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
-        out = make_prefill_step(model, P + extra + 1)(batch)
-    assert B * lm_work.prefill_flops(c, P) <= fc.get_total_flops()
-    cache = (model.init_cache(B, P + 1) if c.family == "audio"
-             else out[1])
-    tok = {"tokens": torch.zeros((B, 1), dtype=torch.int32, device="meta")}
-    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
-        make_decode_step(model)(cache, tok)
-    update = (c.n_layers * lm_work.ssm_update_flops(c)
-              if c.family in ("ssm", "hybrid") else 0)
-    assert B * (lm_work.decode_flops(c, P, 1) - update) \
-        <= fc.get_total_flops()
+    _hold_count(c.replace(n_layers=c.local_global_period or 2))
     assert lm_work.peak_flops(c) == 989.4e12
 
 
-def _contract(repo: Path) -> subprocess.CompletedProcess:
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+@pytest.mark.parametrize("path", _lm_files(),
+                         ids=lambda p: str(p.relative_to(REPO / "detbench")))
+def test_lm_work_counts_no_more_than_the_program_does_for_a_file(path):
+    """The same for every LM configuration file, counted as ``mfu``
+    counts it (its ``layers`` block where it has one) at the depth it
+    runs: on ``meta`` where the model runs there; where it routes by the
+    data (an expert layer that drops no token), on the CPU at a short
+    prompt and the fewest layers that hold every kind (``_every_kind``),
+    counted by the same parts."""
+    cfg = json.loads(path.read_text())
+    drv = _lm_serve()
+    c = drv.model_config(cfg, str(path))
+    try:
+        _hold_count(c, cfg)
+    except RuntimeError as e:
+        if not _needs_data(e):
+            raise
+        cut = _every_kind(cfg, c.local_global_period or 2)
+        small = drv.model_config(cut, str(path))
+        assert set(lm_work.plan(small, cut).layers) \
+            == set(lm_work.plan(c, cfg).layers)
+        _hold_count(small, cut, device="cpu", P=CPU_PROMPT)
+
+
+def test_only_meta_s_refusals_of_data_are_taken_for_routing():
+    """The CPU case is taken for the errors ``meta`` raises where an
+    operation needs the values, and for no other error."""
+    x = torch.zeros(8, dtype=torch.long, device="meta")
+    refusals = []
+    for op in (lambda: x.sum().item(), x.nonzero, lambda: torch.bincount(x),
+               x.tolist, lambda: torch.repeat_interleave(x)):
+        with pytest.raises(RuntimeError) as e:
+            op()
+        refusals.append(_needs_data(e.value))
+    assert refusals == [True] * 5
+    with pytest.raises(RuntimeError) as e:
+        x.view(3, 3)
+    assert not _needs_data(e.value)
+
+
+@pytest.mark.parametrize("held", [True, False])
+def test_the_cpu_case_cuts_a_pattern_to_every_kind(held):
+    """Nemotron-3-Nano's 13 layers cut for the CPU: every kind, each
+    counted by the parts the file states, and the cut a run of the
+    published pattern, so that ``file_plan`` takes it."""
+    cfg = json.loads((FIXTURES / "configs" / "nemotron3_nano_13l.json"
+                      ).read_text())
+    if held:
+        cfg["overrides"]["layer_pattern"] = cfg["hybrid_override_pattern"]
+    cut = _every_kind(cfg, 2)
+    want = "EM*" if held else "MEMEM*"
+    assert cut["hybrid_override_pattern"] == want
+    assert cut["num_hidden_layers"] == cut["overrides"]["n_layers"] \
+        == len(want)
+    assert cut["overrides"].get("layer_pattern", want) == want
+    full, small = lm_work.file_plan(cfg), lm_work.file_plan(cut, "cut")
+    assert set(small.layers) == set(full.layers) and len(full.layers) == 13
+    assert cfg["hybrid_override_pattern"] == "MEMEM*EMEMEM*"
+
+
+def test_the_program_s_count_on_the_cpu_is_meta_s():
+    """The CPU, where a file's model cannot run on ``meta``, counts the
+    program's products as ``meta`` does."""
+    path = FIXTURES / "configs" / "yi34b_smoke.json"
+    c = _lm_serve().model_config(json.loads(path.read_text()), str(path))
+    assert _program_flops(c, 2, CPU_PROMPT, "cpu") == _program_flops(
+        c, 2, CPU_PROMPT, "meta")
+
+
+def test_every_registry_arch_is_counted():
+    """A registry arch whose family has no family plan is counted from
+    the benchmark's configuration files that name it, each with a
+    ``layers`` block, and is named by one at least."""
+    from repro_torch.configs.registry import ARCHS, get_config
+    root = REPO / "detbench"
+    files: dict = {}
+    for d in (root / "configs", root / "tests" / "fixtures" / "configs"):
+        for p in sorted(d.glob("*.json")):
+            cfg = json.loads(p.read_text())
+            files.setdefault(cfg.get("arch"), []).append(
+                (p.name, "layers" in cfg))
+    uncounted = {a: files.get(a, []) for a in ARCHS
+                 if get_config(a).family not in lm_work.FAMILIES
+                 and not (files.get(a) and all(has for _, has in files[a]))}
+    assert not uncounted, uncounted
+
+
+# prefill_flops(1100) and decode_flops(1100, 1) as lm_work counted them
+# by family alone, before a configuration file could state its layers
+FAMILY_COUNTS = {
+    "yi-34b": (74677858304000, 69752668160),
+    "gemma2-9b": (18730442752000, 19239829504),
+    "llama3-405b": (888626965905408, 816587341824),
+    "llama3-8b": (15673041354752, 15586557952),
+    "hymba-1.5b": (3514706102400, 3395966592),
+    "arctic-480b": (37698239488000, 35281899520),
+    "grok-1-314b": (183443401998336, 169241739264),
+    "mamba2-1.3b": (2839490887680, 2787115008),
+    "internvl2-26b": (41906893860864, 39882829824),
+    "whisper-medium": (1218402437120, 1267877888),
+    "yi34b_2l": (2490148864000, 3212009472),
+    "yi34b_smoke": (463297536, 768512),
+}
+
+
+@pytest.mark.parametrize("name", list(FAMILY_COUNTS))
+def test_the_family_count_has_not_moved(name):
+    from repro_torch.configs.registry import ARCHS, get_config
+    if name in ARCHS:
+        c, cfg = get_config(name), None
+    else:
+        path = FIXTURES / "configs" / f"{name}.json"
+        cfg = json.loads(path.read_text())
+        c = _lm_serve().model_config(cfg, str(path))
+    assert (lm_work.prefill_flops(c, 1100, cfg),
+            lm_work.decode_flops(c, 1100, 1, cfg)) == FAMILY_COUNTS[name]
+
+
+_COUNT_FROM_FILE = """
+import json, sys
+from detbench import lm_work
+cfg = json.load(open(sys.argv[1]))
+p = lm_work.file_plan(cfg, sys.argv[1])
+parts = [part for layer in p.layers for part in layer]
+print(json.dumps({
+    "kinds": sorted({type(q).__name__: sum(type(r) is type(q) for r in parts)
+                     for q in parts}.items()),
+    "token": sum(2 * q.weights(p.d_model) + q.token_flops() for q in parts),
+    "position": sum(q.span_flops(1, 1) for q in parts),
+    "head": lm_work.head_flops(p),
+    "prefill": lm_work.prefill_flops(None, 2048, cfg),
+    "decode": lm_work.decode_flops(None, 2048, 128, cfg),
+    "loaded": sorted({"torch", "repro_torch", "numpy"} & set(sys.modules)),
+}))
+"""
+
+
+def test_the_pattern_fixture_is_counted_from_its_file_alone():
+    """Nemotron-3-Nano's first 13 layers (``MEMEM*EMEMEM*``: Mamba-2 of
+    64 heads × 64 in 8 groups, 128 relu² experts top-6 beside a shared
+    one, GQA 32/2) from the file alone, in a process that loads nothing
+    of the program, to the numbers counted by hand: 6 Mamba-2 layers of
+    79,560,704 FLOPs a token, 5 expert layers of 160,333,824 and 2
+    attention layers of 46,792,704, plus 4 · 32 · 128 a position seen in
+    each attention layer."""
+    path = FIXTURES / "configs" / "nemotron3_nano_13l.json"
+    got = subprocess.run(
+        [sys.executable, "-c", _COUNT_FROM_FILE, str(path)], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+        text=True, timeout=60, check=True)
+    out = json.loads(got.stdout)
+    assert out["kinds"] == [["Attention", 2], ["Mamba2", 6], ["Moe", 5]]
+    assert out["token"] == 6 * 79_560_704 + 5 * 160_333_824 \
+        + 2 * 46_792_704 == 1_372_618_752
+    assert out["position"] == 32_768
+    assert out["head"] == 704_643_072
+    assert out["prefill"] == 2_880_580_878_336
+    assert out["decode"] == 274_749_980_672
+    assert out["loaded"] == []
+
+
+def test_mfu_counts_the_file_s_layers():
+    """``mfu`` reads the configuration file's layers, not a family's."""
+    cfg = json.loads((FIXTURES / "configs" / "nemotron3_nano_13l.json"
+                      ).read_text())
+    run = harness.Run(workload=None, config=cfg, window_s=2.0,
+                      device="cuda", model=types.SimpleNamespace(
+                          dtype="bfloat16"),
+                      shapes=np.array([[2048, 128]] * 16 + [[512, 64]] * 16),
+                      tokens_prefill=16 * 2560, tokens_decode=16 * 192)
+    want = 16 * (2_880_580_878_336 + 274_749_980_672
+                 + lm_work.prefill_flops(None, 512, cfg)
+                 + lm_work.decode_flops(None, 512, 64, cfg))
+    assert harness.read_metric("mfu", run) == pytest.approx(
+        100 * want / 2.0 / 989.4e12, rel=1e-12)
+
+
+@pytest.mark.parametrize("family", ["nemotron_h", "vlm", "audio"])
+def test_lm_serve_takes_any_family_but_those_needing_other_inputs(
+        monkeypatch, family):
+    """A stub arch of a family `lm_serve` has never seen is served;
+    ``vlm`` and ``audio``, which need image embeddings or an encoder's
+    frames beside the tokens, are refused."""
+    from repro_torch.configs import registry
+    from repro_torch.models.config import ModelConfig
+    stub = ModelConfig(name="stub", family=family, n_layers=4, d_model=64,
+                       n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+                       vocab_size=512, dtype="float32")
+    monkeypatch.setitem(registry.ARCHS, "stub-arch", "stub")
+    monkeypatch.setattr(registry, "get_config", lambda name, **kw: stub)
+    cfg = {"driver": "lm_serve", "arch": "stub-arch",
+           "overrides": {"n_layers": 2}, "dtype": "float32",
+           "num_hidden_layers": 2, "hidden_size": 64}
+    drv = _lm_serve()
+    if family == "nemotron_h":
+        assert drv.model_config(cfg, "stub.json").n_layers == 2
+    else:
+        with pytest.raises(ValueError, match=r"stub\.json: the .* family "
+                           "is not served"):
+            drv.model_config(cfg, "stub.json")
+
+
+def _pytest(repo: Path, path: Path, *args: str,
+            plugins: Path | None = None) -> subprocess.CompletedProcess:
+    """pytest over ``path`` in the checkout ``repo``; ``plugins``: a
+    directory of plugin modules put on the import path (``-p``)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src")] + ([str(plugins)] if plugins else [])))
     return subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
-         "-p", "no:randomly",
-         str(repo / "detbench" / "tests" / "test_detbench_contract.py")],
+         "-p", "no:randomly", *args, str(path)],
         cwd=repo, env=env, capture_output=True, text=True, timeout=300)
 
 
-@pytest.mark.parametrize("case", ["added", "width_cut"])
+def _contract(repo: Path, *args: str, plugins: Path | None = None
+              ) -> subprocess.CompletedProcess:
+    return _pytest(repo, repo / "detbench" / "tests"
+                   / "test_detbench_contract.py", *args, plugins=plugins)
+
+
+# the arch a model_config change registers for the pattern fixture: its
+# name and ModelConfig, of a family without a family plan
+_STUB_ARCH = """
+from repro_torch.configs import registry
+from repro_torch.models.config import ModelConfig
+
+STUB = ModelConfig(name="nemotron-3-nano-30b-a3b", family="nemotron_h",
+                   n_layers=52, d_model=2688, n_heads=32, n_kv_heads=2,
+                   head_dim=128, d_ff=1856, vocab_size=131072,
+                   rope_theta=10000.0, dtype="bfloat16")
+registry.ARCHS[STUB.name] = "stub"
+_get = registry.get_config
+
+
+def _get_config(name, smoke=False, optimized=False):
+    return STUB if name == STUB.name else _get(name, smoke, optimized)
+
+
+registry.get_config = _get_config
+"""
+
+
+def _add_pattern_model(fx, tmp_path: Path) -> Path:
+    """What a model_config change adds for the pattern fixture: it as a
+    configuration, a workload, a reference, the entries, and its arch in
+    the registry (a stub plugin here) → the plugin's directory."""
+    name = "nemotron3_nano_13l"
+    shutil.copy(FIXTURES / "configs" / f"{name}.json", fx.root / "configs")
+    cfg = json.loads((fx.root / "configs" / f"{name}.json").read_text())
+    (fx.root / "workloads" / f"{name}.serve.json").write_text(json.dumps({
+        "config": name, "loop": "closed", "batch": 16,
+        "lengths": [[2048, 128]], "check_sequences": 4, "check_steps": 3}))
+    (fx.root / cfg["reference"]).write_text(
+        "import torch\n\n\ndef forward(params, cfg, tokens):\n"
+        "    raise NotImplementedError\n")
+    fx.bench["configs"].append({
+        "name": name, "source": cfg["source"],
+        "file": f"detbench/configs/{name}.json",
+        "reduced": ["hybrid_override_pattern", "num_hidden_layers"],
+        "why": "Mamba-2, relu2 experts and GQA by hybrid_override_pattern"})
+    fx.bench["workloads"].append({
+        "name": f"{name}.serve", "config": name,
+        "traffic": f"{name}.serve", "chips": 1,
+        "why": "batches of 16, prompts of 2048, 128 greedy steps"})
+    for m in fx.bench["per_layer"]:
+        if m["name"] in ("mfu", "idle_share"):
+            m["workloads"].append(f"{name}.serve")
+    plugins = tmp_path / "plugins"
+    plugins.mkdir()
+    (plugins / "stub_arch.py").write_text(_STUB_ARCH)
+    return plugins
+
+
+@pytest.mark.parametrize("case", ["added", "width_cut", "pattern_model"])
 def test_added_cells_pass_the_contract_tests_unedited(tmp_path, case):
     """``wide.mixed`` (data only) and the yi-34b fixture's LM cell,
     added as files and entries, pass the contract tests as they are; a
-    cut of a width does not."""
+    cut of a width does not.  The pattern fixture (Nemotron-3-Nano, a
+    family the program does not have yet), added as a configuration with
+    its arch stubbed into the registry, passes them too; the count's
+    tests collect it as a file to count, and count its arch by its file,
+    and by nothing once its ``layers`` block is gone."""
     fx = add_lm_fixture(tmp_path)
     root, bench = fx.root, fx.bench
     bench["configs"] = [c for c in bench["configs"]
@@ -361,6 +715,7 @@ def test_added_cells_pass_the_contract_tests_unedited(tmp_path, case):
         m["workloads"] = [c for c in m["workloads"] if c in cells]
         if m["name"] == "idle_share":
             m["workloads"].append("wide.mixed")
+    plugins = None
     if case == "width_cut":
         cfg = root / "configs" / "yi34b_2l.json"
         d = json.loads(cfg.read_text())
@@ -368,11 +723,35 @@ def test_added_cells_pass_the_contract_tests_unedited(tmp_path, case):
         cfg.write_text(json.dumps(d))
         next(c for c in bench["configs"] if c["name"] == "yi34b_2l"
              )["reduced"].append("intermediate_size")
+    if case == "pattern_model":
+        plugins = _add_pattern_model(fx, tmp_path)
     (fx.repo / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
-    got = _contract(fx.repo)
-    if case == "added":
-        assert got.returncode == 0, got.stdout[-3000:]
-        assert "failed" not in got.stdout
-    else:
+    stub = ("-p", "stub_arch") if plugins else ()
+    got = _contract(fx.repo, *stub, plugins=plugins)
+    if case == "width_cut":
         assert got.returncode == 1, got.stdout[-3000:]
         assert "1 failed" in got.stdout
+        return
+    assert got.returncode == 0, got.stdout[-3000:]
+    assert "failed" not in got.stdout
+    if case == "added":
+        return
+    lm_tests = root / "tests" / "test_detbench_lm.py"
+    listed = _pytest(fx.repo, lm_tests, "--collect-only", *stub,
+                     plugins=plugins)
+    assert listed.returncode == 0, listed.stdout[-3000:]
+    assert "program_does_for_a_file[configs/nemotron3_nano_13l.json]" \
+        in listed.stdout, listed.stdout[-3000:]
+    assert "program_does[nemotron-3-nano-30b-a3b]" not in listed.stdout
+    counted = _pytest(fx.repo, lm_tests, "-k", "every_registry_arch",
+                      *stub, plugins=plugins)
+    assert counted.returncode == 0, counted.stdout[-3000:]
+    assert "1 passed" in counted.stdout, counted.stdout[-3000:]
+    path = root / "configs" / "nemotron3_nano_13l.json"
+    cfg = json.loads(path.read_text())
+    del cfg["layers"]
+    path.write_text(json.dumps(cfg))
+    uncounted = _pytest(fx.repo, lm_tests, "-k", "every_registry_arch",
+                        *stub, plugins=plugins)
+    assert uncounted.returncode == 1, uncounted.stdout[-3000:]
+    assert "nemotron-3-nano-30b-a3b" in uncounted.stdout

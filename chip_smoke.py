@@ -108,7 +108,11 @@ per source, all at once) and runs these phases, each printing its lines:
    identity in a random order);
    NaN input (a NaN column or row for K1 and K3 at (3, 20, 24), K6 at
    m = 20, 40 and 250) answered NaN as the plain versions do, its batch
-   neighbours as alone, and a clean launch after it; m = 0 through
+   neighbours as alone, and a clean launch after it; the prefix walk's
+   K1, K2 and K4 bit for bit against ``tests/fixtures/prefix_walk_bits.json``
+   (the walk's answers before its deep step went to shuffles: every m
+   = 17..27, ties, a zero, a NaN and a sign-flipped repeated column);
+   m = 0 through
    ``radic_det``, ``radic_det_batched``, their gradients, the by-grid
    entry and a ``cuda`` plan: 1.0 (gradients of shape (0, n)) with no
    launch counted;
@@ -1883,6 +1887,95 @@ def phase_wide_nan(errs: Errors, gen: torch.Generator, plain64,
     print("wide NaN input: K1, K3 and K6 (m = 20, 40, 250) answer NaN for "
           "the NaN matrices, their neighbours as alone; the card still "
           "launches")
+
+
+# The prefix walk's answers before its deep step went to shuffles, on an
+# H100: the hex of each case's float32 partials through K1, K2 and K4
+PREFIX_BITS = ROOT / "tests" / "fixtures" / "prefix_walk_bits.json"
+# stacks whose ties and bad entries reach the pivot rule: a zero column, a
+# NaN column, a column repeated with its sign flipped, a row repeated with
+# its sign flipped in every other column (the two entries' keys tie
+# there), and small integers (ties everywhere, exactly singular minors)
+PREFIX_BITS_KINDS = ("normal", "zero_column", "nan_column",
+                     "opposite_columns", "opposite_rows", "integers")
+
+
+def prefix_bits_stack(m: int, n: int, kind: str, seed: int) -> np.ndarray:
+    """Two seeded (m, n) matrices of the given kind, in float32."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(2, m, n)) / np.sqrt(m)
+    if kind == "zero_column":
+        A[:, :, 3] = 0.0
+    elif kind == "nan_column":
+        A[:, :, n - 2] = np.nan
+    elif kind == "opposite_columns":
+        A[:, :, 5] = -A[:, :, 1]
+    elif kind == "opposite_rows":
+        A[:, 4, ::2] = -A[:, 2, ::2]
+    elif kind == "integers":
+        A = rng.integers(-2, 3, size=(2, m, n)).astype(np.float64)
+    return A.astype(np.float32)
+
+
+def prefix_bits_cases() -> list[tuple]:
+    """(m, n, kind, q_start, count): at every m the walk has an instance
+    for, n = m + 6 and n = 33 over the whole range and n = 33 over a part
+    from a third of the way in; the other kinds at (17, 23), (20, 26) and
+    (24, 33) over the whole range."""
+    from repro_torch.core.pascal import comb
+    from repro_torch.kernels import radic_fused as rf
+    cases = []
+    for m in range(17, rf.PREFIX_MAX_M + 1):
+        for n in sorted({m + rf.PREFIX_MIN_GAP, 33}):
+            cases.append((m, n, "normal", 0, comb(n, m)))
+        total = comb(33, m)
+        cases.append((m, 33, "normal", total // 3,
+                      min(total // 3, (1 << 20) + 7)))
+    for m, n in ((17, 23), (20, 26), (24, 33)):
+        cases += [(m, n, kind, 0, comb(n, m))
+                  for kind in PREFIX_BITS_KINDS[1:]]
+    return cases
+
+
+def prefix_walk_bits() -> list[dict]:
+    """Each case's answers on the card through K1, K2 (each matrix alone)
+    and K4, as the hex of their float32 bits.  Run against an older
+    ``src`` first on ``sys.path``, it records that commit's fixture."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import radic_fused as rf
+
+    def hexes(x):
+        return [f"{v & 0xffffffff:08x}" for v in
+                x.detach().cpu().contiguous().view(torch.int32).tolist()]
+
+    out = []
+    for i, (m, n, kind, q0, cnt) in enumerate(prefix_bits_cases()):
+        check(rf.prefix_walk(m, n), f"({m}, {n}) is not on the prefix walk")
+        As = torch.from_numpy(prefix_bits_stack(m, n, kind, 7919 * i + m))
+        As = As.cuda()
+        k1 = ops.radic_det_batched_cuda(As, q0, cnt)
+        k2 = torch.stack([ops.radic_det_cuda(A, q_start=q0, count=cnt)
+                          for A in As])
+        k4 = ops.radic_det_batched_cuda_bygrid(As, q0, cnt)
+        out.append(dict(m=m, n=n, kind=kind, q_start=q0, count=cnt,
+                        K1=hexes(k1), K2=hexes(k2), K4=hexes(k4)))
+    return out
+
+
+def phase_prefix_bits() -> None:
+    """K1, K2 and K4 on the prefix walk answer every case of
+    ``PREFIX_BITS`` bit for bit as the fixture has it."""
+    want = json.loads(PREFIX_BITS.read_text())
+    got = prefix_walk_bits()
+    keys = ("m", "n", "kind", "q_start", "count")
+    check([[c[k] for k in keys] for c in want]
+          == [[c[k] for k in keys] for c in got],
+          "the fixture's cases differ from prefix_bits_cases()")
+    differ = [tuple(c[k] for k in keys[:4])
+              for c, w in zip(got, want) if c != w]
+    check(not differ, f"prefix walk bits differ from the fixture: {differ}")
+    print(f"prefix walk bits: K1, K2 and K4 equal the fixture on "
+          f"{len(got)} cases")
 
 
 WIDE_SERVE_ARGS = ["--num", "256", "--max-m", "24", "--max-n", "26",
@@ -4261,6 +4354,7 @@ def main() -> int:
     k456 = phase_k456(errs, gen)
     done("8 K4 K5 K6")
     wide = phase_wide(errs, gen)
+    phase_prefix_bits()
     phase_empty_minor()
     done("10 wide kernels")
     wide_serve = phase_wide_serve()

@@ -9,14 +9,14 @@
 // radic_batched_combo_kernel (K1), :39 radic_fused_kernel (K2, the same
 // kernel at B = 1) and :92 radic_batched_kernel (K4).
 //
-// What bounds it: the chain of a step.  Each elimination step is a
-// serial pivot search and the multipliers in one lane, a warp barrier,
-// then every lane's update, a few instructions a live row, so the kernel
-// is bound by the issue of these short dependent steps (far below the
-// float32 peak on its own operation count), not by arithmetic or memory;
-// a short range is bound by one run's serial chain
-// (the dispatch leaves those to the warp kernel).  Design: do fewer
-// steps.
+// What bounds it: the chain of a step.  Each elimination step is a few
+// dependent instructions a live row in every lane (the pivot column's
+// shuffles, the search, the reciprocal, the multipliers, the update), so
+// the kernel is bound by the issue of these short dependent steps (far
+// below the float32 peak on its own operation count), not by arithmetic
+// or memory; a short range is bound by one run's serial chain (the
+// dispatch leaves those to the warp kernel).  Design: do fewer steps, and
+// keep each step off memory and barriers.
 //   * Gaussian elimination of A[:, B] (not of the transposed minor) with
 //     row partial pivoting, det_ge's rule: the largest magnitude wins, a
 //     tie goes to the lower row, a NaN counts as +inf, so that every step
@@ -36,14 +36,22 @@
 //     dictionary order eliminates each prefix once: C(n, m - 1) - 1 steps
 //     for all C(n, m) minors of a full range, m / (n - m + 1) a minor,
 //     where the parent kernel took m.
-//   * The step: the lane of the pivot column searches its live entries
-//     serially and writes the pivot, its index and the multipliers to
-//     its warp's record in shared memory; after __syncwarp every lane
-//     reads them (a broadcast, 16 bytes at a time) and updates its
-//     column.  No shuffle, no warp reduction.
+//   * The step (prefix_step): the pivot column's L live entries reach
+//     every lane by L shuffles from its lane, and each lane works out the
+//     pivot, its index, the reciprocal and the multipliers itself, then
+//     updates its column: nothing goes through shared memory and no
+//     barrier waits.  Every lane does prefix_record's
+//     arithmetic on the values the pivot lane holds, so the bits are the
+//     record's.  The restarts (levels below K0, L at run time) keep the
+//     record: the pivot lane searches serially and writes the pivot, its
+//     index and the multipliers to its warp's record in shared memory,
+//     and after __syncwarp every lane reads them (16 bytes at a time).
 //   * The walk keeps levels K0..m-2 (the deepest prefix_deep(m) levels,
 //     level k holding m - k floats a lane) in registers, by template
-//     recursion.  Where the walk's change reaches above them (a restart:
+//     recursion; a level carries the pivots' product with the sign
+//     folded in (exact: a sign flip rounds nothing), a register fewer a
+//     level, so that no instance spills at kPrefixMinBlocks blocks an
+//     SM.  Where the walk's change reaches above them (a restart:
 //     a run's start, or a prefix of length K0 used up) the levels up to
 //     K0 are eliminated again, in a loop over fixed M-slot arrays (an
 //     unrolled chain of them overflowed the instruction cache at m >= 24),
@@ -187,33 +195,67 @@ __device__ __forceinline__ float column_sign(int c) {
   return (c & 1) ? 1.0f : -1.0f;
 }
 
-// Level K of the walk: its state S (M - K live entries a lane), the
-// pivots' product and the sign so far; position K takes columns c, c + 1,
-// ... up to its cap n - M + K.
+// A deep step in every lane at once: the pivot column's L live entries
+// come from lane `src` by shuffles, and each lane works out the pivot,
+// its index p and the multipliers itself, with prefix_record's
+// arithmetic, then updates its column v into w as prefix_apply does.
+// Returns the pivot.
+template <int L>
+__device__ __forceinline__ float prefix_step(const float (&v)[L], int src,
+                                             float (&w)[L - 1], int& p) {
+  float u[L];
+#pragma unroll
+  for (int r = 0; r < L; ++r) u[r] = __shfl_sync(kFullMask, v[r], src);
+  // the pivot: the first of the largest keys (prefix_record's scan),
+  // its value and the lane's own entry on its row
+  unsigned key = pivot_key(u[0]);
+  float piv = u[0], top = v[0];
+  p = 0;
+#pragma unroll
+  for (int r = 1; r < L; ++r) {
+    const unsigned kr = pivot_key(u[r]);
+    const bool later = kr > key;
+    key = later ? kr : key;
+    p = later ? r : p;
+    piv = later ? u[r] : piv;
+    top = later ? v[r] : top;
+  }
+  const float safe = (piv == 0.0f) ? 1.0f : piv;
+  const float inv = 1.0f / safe;
+#pragma unroll
+  for (int r = 0; r + 1 < L; ++r) {
+    const bool above = r < p;
+    const float f = quotient(above ? u[r] : u[r + 1], safe, inv);
+    w[r] = (above ? v[r] : v[r + 1]) - f * top;
+  }
+  return piv;
+}
+
+// Level K of the walk: its state S (M - K live entries a lane) and the
+// pivots' product so far times the sign so far (exact: a sign flip
+// rounds nothing, so each leaf gets the bits of sign times product);
+// position K takes columns c, c + 1, ... up to its cap n - M + K.
 template <int M, int K>
 __device__ __forceinline__ void prefix_level(const float (&S)[M - K],
-                                             float prod, float sgn, int c,
+                                             float prod, int c,
                                              PrefixWalk<M>& w) {
   constexpr int L = M - K;
   for (; c <= w.n - M + K && w.left > 0; ++c) {
-    __syncwarp();  // every lane has read the last record
-    if (w.lane == c - w.off) prefix_record(S, L, w.rec);
-    __syncwarp();
     float T[L - 1];
     int p;
-    const float p2 = prod * prefix_apply(S, L, w.rec, T, p);
-    const float cs = column_sign(c);
-    const float s2 = (p & 1) ? -(sgn * cs) : sgn * cs;
+    const float q = prod * prefix_step(S, c - w.off, T, p);
+    // column c's share of the sign, (-1)^(c + 1), and the pivot's parity
+    const float p2 = ((c ^ p) & 1) ? q : -q;
     if constexpr (K == M - 2) {
       // the leaves (prefix, c, j), j = js..je, one a lane
       const int js = w.first ? w.combo[M - 1] : c + 1;
       const int je = min(w.n - 1, js + w.left - 1);
       const int j = w.lane + w.off;
-      if (j >= js && j <= je) w.acc += (s2 * column_sign(j)) * (p2 * T[0]);
+      if (j >= js && j <= je) w.acc += column_sign(j) * (p2 * T[0]);
       w.left -= je - js + 1;
       w.first = false;
     } else {
-      prefix_level<M, K + 1>(T, p2, s2, w.first ? w.combo[K + 1] : c + 1, w);
+      prefix_level<M, K + 1>(T, p2, w.first ? w.combo[K + 1] : c + 1, w);
     }
   }
 }
@@ -320,7 +362,7 @@ __global__ void __launch_bounds__(kPrefixThreads, kPrefixMinBlocks)
         float S[D];
 #pragma unroll
         for (int r = 0; r < D; ++r) S[r] = v[r];
-        prefix_level<M, K0>(S, prod, sgn,
+        prefix_level<M, K0>(S, sgn * prod,
                             w.first ? w.combo[K0] : w.combo[K0 - 1] + 1, w);
         if (w.left > 0) {
           // the prefix used up: its successor (positions 0..K0-1)

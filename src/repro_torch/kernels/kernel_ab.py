@@ -22,9 +22,9 @@ variant's result must equal ``cur``'s bit for bit (no choice here moves
 arithmetic), but for ``diag_`` variants, which take a phase out,
 variants of launch parameters alone or of a run length or dispatch
 threshold with the source constant it mirrors (``_REORDERING``), which
-change a reduction's order or the kernel, and the baseline's kernels
-redesigned since (``REDESIGNED``), whose difference is printed; ptxas's
-registers and spills are printed for the kernels timed.
+change a reduction's order or the kernel, whose difference is printed;
+``base`` too must equal ``cur``; ptxas's registers and spills are
+printed for the kernels timed.
 
     python -m repro_torch.kernels.kernel_ab [--baseline DIR] [EXPERIMENT ...]
 
@@ -84,10 +84,6 @@ K6_SHAPES = [("K6", 1 << 20, 8, 8), ("K6d", 1 << 20, 8, 8),
              ("K6", 1 << 18, 16, 16), ("K6d", 1 << 18, 16, 16),
              ("K6", 2048, 8, 8)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
-# kernels redesigned at m > 16 since the baseline: their bits may differ
-# from the baseline's (K1 and K4 wide: the prefix walk eliminates A[:, B],
-# not the transposed minor)
-REDESIGNED = ("K1", "K4")
 # The warp kernels' phases (csrc/warp.cuh, csrc/radic_warp_grad.cuh) and
 # the edits that take each out, as {old: new} for the sources of the
 # earlier K3 (X and Z through shared memory) and of this one, so that the
@@ -258,6 +254,7 @@ _PREFIX_ALL = _prefix_const(PREFIX_CU, "kPrefixMinGap", "PREFIX_MIN_GAP", 6,
 
 
 _PREFIX_MIN_BLOCKS = "constexpr int kPrefixMinBlocks = 2;"
+# the pivot lane's record (the restarts' step; a baseline's deep step too)
 PREFIX_NO_SEARCH = {"    if (r < L && u > best) {":
                     "    if (r < 0 && u > best) {  // diag: no search"}
 PREFIX_NO_BCAST = {
@@ -266,6 +263,16 @@ PREFIX_NO_BCAST = {
     "    const float4 q = r4[g];":
     "    const float4 q = make_float4(v[0], v[0], v[0], v[0]);  // diag: no "
     "broadcast"}
+# the deep step by shuffles (prefix_step; None: the parent has none): its
+# search, its column's shuffles and its quotients
+PREFIX_STEP_NO_SEARCH = {"    const bool later = kr > key;":
+                         "    const bool later = false;  // diag: no search",
+                         None: None}
+PREFIX_STEP_NO_BCAST = {
+    "  for (int r = 0; r < L; ++r) u[r] = __shfl_sync(kFullMask, v[r], src);":
+    "  for (int r = 0; r < L; ++r) u[r] = v[r];  // diag: no broadcast",
+    "    const float f = quotient(above ? u[r] : u[r + 1], safe, inv);":
+    "    const float f = above ? u[r] : u[r + 1];  // diag: no multipliers"}
 PREFIX_NO_RESTART = {"        for (int k = from; k < K0; ++k) {":
                      "        for (int k = K0; k < K0; ++k) {  // diag: no "
                      "restart"}
@@ -428,8 +435,8 @@ EXPERIMENTS = {
     # the prefix walk (K1, K2 and K4 at m >= 17 where n - m >= 6) against
     # the warp kernel in this tree (warp_only), its run length, register
     # cap, snapshotted and registered levels, and diagnostics taking out
-    # its pivot search, its multipliers and its restarts (with
-    # --baseline, against the parent's kernels too)
+    # its pivot search, its multipliers and their broadcast, and its
+    # restarts (with --baseline, against the parent's kernels too)
     "prefix": ({
         "warp_only": _WARP_ONLY,
         "run128": _prefix_const(PREFIX_CU, "kPrefixRunMax", "PREFIX_RUN_MAX",
@@ -450,9 +457,13 @@ EXPERIMENTS = {
                                8),
         "deep12": _prefix_const(PREFIX_CUH, "kPrefixDeep", "PREFIX_DEEP", 10,
                                 12),
-        "diag_no_search": [(PREFIX_CUH, PREFIX_NO_SEARCH)],
-        "diag_no_bcast": [(PREFIX_CUH, {old: new})
-                          for old, new in PREFIX_NO_BCAST.items()],
+        "diag_no_search": [(PREFIX_CUH, PREFIX_NO_SEARCH),
+                           (PREFIX_CUH, PREFIX_STEP_NO_SEARCH)],
+        "diag_no_bcast": [
+            *((PREFIX_CUH, {old: new})
+              for old, new in PREFIX_NO_BCAST.items()),
+            *((PREFIX_CUH, {old: new, None: None})
+              for old, new in PREFIX_STEP_NO_BCAST.items())],
         "diag_no_restart": [(PREFIX_CUH, PREFIX_NO_RESTART)],
     }, PREFIX_SHAPES),
     # the prefix walk's dispatch: every shape on the warp kernel
@@ -864,11 +875,8 @@ def main(argv: list[str]) -> int:
             for v in order:
                 got = calls[v][1]
                 same = bool(torch.equal(got, want))
-                # the baseline's redesigned kernels may differ in the last
-                # bits: the difference is printed
                 ok &= same or _is_diag(v) or _launch_only(
-                    variants.get(v.split("+")[-1], [])) or (
-                    v == "base" and kernel in REDESIGNED and m > rf.CUDA_MAX_M)
+                    variants.get(v.split("+")[-1], []))
                 gap = ((got.double() - want.double()).abs().max()
                        / want.double().abs().max())
                 diff = "" if same else (

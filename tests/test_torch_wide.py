@@ -6,7 +6,12 @@ m, a queue serving m >= 17, a torch model of the warp kernel's rank
 tiling, and the plain torch model of the prefix walk (its visit order,
 its leaves, its partial sums and its step count).  On the card
 ``chip_smoke.py`` holds the warp kernels and the prefix walk against
-these same plain versions."""
+these same plain versions, and the prefix walk's bits to those its
+kernels gave before its deep step went to shuffles."""
+
+import importlib.util
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -442,3 +447,37 @@ def test_prefix_walk_bad_column_reaches_only_its_minors(kind):
                     else bool(torch.isnan(det))
             else:
                 assert bool(torch.isfinite(det)) and float(det) != 0.0
+
+
+# ------------------------------------------ the prefix walk's bits on the card
+def _chip_smoke():
+    """chip_smoke.py, the on-card check, loaded by path from the repo root."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_prefix_walk_bits_fixture_holds_every_case():
+    """The fixture lists the cases chip_smoke.py's bit check makes, in
+    order, and its K1, K2 and K4 answers agree bit for bit, as the walk's
+    design has them in every entry and batch slot."""
+    cs = _chip_smoke()
+    want = json.loads(cs.PREFIX_BITS.read_text())
+    assert [(c["m"], c["n"], c["kind"], c["q_start"], c["count"])
+            for c in want] == cs.prefix_bits_cases()
+    assert all(c["K1"] == c["K2"] == c["K4"] and len(c["K1"]) == 2
+               for c in want)
+
+
+@pytest.mark.card
+def test_prefix_walk_bits_match_the_recorded_parent():
+    """K1, K2 and K4 on the prefix walk answer, bit for bit, as the walk
+    did before its deep step went to shuffles: the fixture holds that
+    commit's answers on an H100 to the same cases (every m of the walk,
+    ties, a zero, a NaN and a repeated column).  chip_smoke.py makes the
+    same check on the card, where jax is not installed."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the fixture holds the card's bits")
+    _chip_smoke().phase_prefix_bits()

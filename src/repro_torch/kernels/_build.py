@@ -135,9 +135,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.radic_grad_tile.restype = i32
     lib.radic_partial_smem_bytes.argtypes = [i32, i32, i32]
     lib.radic_partial_smem_bytes.restype = i32
-    if hasattr(lib, "radic_partial_route"):   # not in libraries before it
-        lib.radic_partial_route.argtypes = [i32, i32]
-        lib.radic_partial_route.restype = i32
+    lib.radic_partial_route.argtypes = [i32, i32]
+    lib.radic_partial_route.restype = i32
     lib.radic_grad_smem_bytes.argtypes = [i32, i32, i32]
     lib.radic_grad_smem_bytes.restype = i32
     lib.radic_unrank.argtypes = [vp, i32, i32, i32, vp, vp, i32, vp]

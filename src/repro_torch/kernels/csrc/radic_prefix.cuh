@@ -36,28 +36,25 @@
 //     dictionary order eliminates each prefix once: C(n, m - 1) - 1 steps
 //     for all C(n, m) minors of a full range, m / (n - m + 1) a minor,
 //     where the parent kernel took m.
-//   * The step (prefix_step): the pivot column's L live entries reach
-//     every lane by L shuffles from its lane, and each lane works out the
-//     pivot, its index, the reciprocal and the multipliers itself, then
-//     updates its column: nothing goes through shared memory and no
-//     barrier waits.  Every lane does prefix_record's
-//     arithmetic on the values the pivot lane holds, so the bits are the
-//     record's.  The restarts (levels below K0, L at run time) keep the
-//     record: the pivot lane searches serially and writes the pivot, its
-//     index and the multipliers to its warp's record in shared memory,
-//     and after __syncwarp every lane reads them (16 bytes at a time).
+//   * The step (prefix_step), one function at every level: the pivot
+//     column reaches every lane (by shuffles from its lane,
+//     prefix_column; at level 0 from the staged matrix), and each
+//     lane works out the pivot, its index, the reciprocal and the
+//     multipliers itself, all lanes alike, then updates its column:
+//     nothing goes through shared memory and no barrier waits.  Every
+//     level carries the pivots' product with the sign folded in (exact:
+//     a sign flip rounds nothing).
 //   * The walk keeps levels K0..m-2 (the deepest prefix_deep(m) levels,
 //     level k holding m - k floats a lane) in registers, by template
-//     recursion; a level carries the pivots' product with the sign
-//     folded in (exact: a sign flip rounds nothing), a register fewer a
-//     level, so that no instance spills at kPrefixMinBlocks blocks an
-//     SM.  Where the walk's change reaches above them (a restart:
+//     recursion, so that no instance spills at kPrefixMinBlocks blocks
+//     an SM.  Where the walk's change reaches above them (a restart:
 //     a run's start, or a prefix of length K0 used up) the levels up to
-//     K0 are eliminated again, in a loop over fixed M-slot arrays (an
-//     unrolled chain of them overflowed the instruction cache at m >= 24),
-//     from the staged matrix or from the snapshot of the deepest level
-//     the change leaves intact: levels K0 - kPrefixSnap .. K0 - 1 are
-//     kept in shared memory as they are built.
+//     K0 are eliminated again, in a loop over fixed M-slot arrays masked
+//     past L = M - k (an unrolled chain of them overflowed the
+//     instruction cache at m >= 24), from the staged matrix or from the
+//     snapshot of the deepest level the change leaves intact: levels
+//     K0 - kPrefixSnap .. K0 - 1 are kept in shared memory as they are
+//     built.
 //   * Each lane adds its leaves in rank order; at a run's end a butterfly
 //     adds the lanes (the same bits in every lane) and lane 0 adds that
 //     to its warp's running sum.  A block walks one matrix at a time
@@ -81,9 +78,6 @@ constexpr int kPrefixWarps = 8;                  // warps per block
 constexpr int kPrefixThreads = 32 * kPrefixWarps;
 constexpr int kPrefixDeep = 10;                  // levels kept in registers
 constexpr int kPrefixSnap = 6;   // levels above them kept in shared memory
-// A step's record in shared memory: the pivot, its index and two unused
-// words, then the multipliers (at most 32) in 16-byte groups.
-constexpr int kRecFloats = 40;
 constexpr int kComboInts = 36;                   // a warp's combination
 
 // Levels a walk keeps in registers: levels m - D .. m - 2.
@@ -103,9 +97,9 @@ __host__ __device__ constexpr int prefix_snap_lo(int m) {
              : 1;
 }
 // A lane's floats before level k's snapshot (k >= lo): each level's
-// m - j live entries, the product and the sign.
+// m - j live entries and the signed product.
 __host__ __device__ constexpr int prefix_snap_base(int m, int k) {
-  return (k - prefix_snap_lo(m)) * (2 * (m + 2) - prefix_snap_lo(m) - k + 1) /
+  return (k - prefix_snap_lo(m)) * (2 * (m + 1) - prefix_snap_lo(m) - k + 1) /
          2;
 }
 // A warp's snapshots, in floats.
@@ -120,64 +114,6 @@ __device__ __forceinline__ unsigned pivot_key(float x) {
   return u < 0x7f800000u ? u : 0x7f800000u;
 }
 
-// The pivot lane's part of a step on its column's L live entries v[0..L-1]
-// (of N >= L slots): the pivot (the first of the largest keys), its index
-// p among the live rows, and the multipliers of the other live rows in
-// their order, written to `rec`.
-template <int N>
-__device__ __forceinline__ void prefix_record(const float (&v)[N], int L,
-                                              float* rec) {
-  unsigned best = pivot_key(v[0]);
-  int p = 0;
-#pragma unroll
-  for (int r = 1; r < N; ++r) {
-    const unsigned u = pivot_key(v[r]);
-    if (r < L && u > best) {
-      best = u;
-      p = r;
-    }
-  }
-  float piv = v[0];
-#pragma unroll
-  for (int r = 1; r < N; ++r) piv = (r == p) ? v[r] : piv;
-  const float safe = (piv == 0.0f) ? 1.0f : piv;
-  const float inv = 1.0f / safe;
-  rec[0] = piv;
-  rec[1] = __int_as_float(p);
-#pragma unroll
-  for (int r = 0; r + 1 < N; ++r)
-    if (r + 1 < L) rec[4 + r] = quotient(r < p ? v[r] : v[r + 1], safe, inv);
-}
-
-// Every lane's part of a step: its column's L live entries v (N slots)
-// less the multipliers times its entry on the pivot row, packed into w
-// (w may be v: each slot is read before it is written).  Returns the
-// pivot; `p` is its index among the live rows.
-template <int N, int NW>
-__device__ __forceinline__ float prefix_apply(const float (&v)[N], int L,
-                                              const float* rec,
-                                              float (&w)[NW], int& p) {
-  p = __float_as_int(rec[1]);
-  float top = v[0];
-#pragma unroll
-  for (int r = 1; r < N; ++r) top = (r == p) ? v[r] : top;
-  constexpr int G = (N + 2) / 4;  // 16-byte groups of N - 1 multipliers
-  float f[4 * G];
-  const float4* r4 = reinterpret_cast<const float4*>(rec + 4);
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float4 q = r4[g];
-    f[4 * g] = q.x;
-    f[4 * g + 1] = q.y;
-    f[4 * g + 2] = q.z;
-    f[4 * g + 3] = q.w;
-  }
-#pragma unroll
-  for (int r = 0; r + 1 < N; ++r)
-    if (r + 1 < L) w[r] = (r < p ? v[r] : v[r + 1]) - f[r] * top;
-  return rec[0];
-}
-
 // A warp's walk of one run: the run's combination (`combo`, shared
 // memory, written by the warp), the leaves still to visit, and each
 // lane's sums.
@@ -186,7 +122,6 @@ struct PrefixWalk {
   int n, off, lane, left;
   bool first;   // still on the run's first path down from its combination
   int* combo;   // positions 0..M-1; 0..K0-1 are the current prefix
-  float* rec;   // this warp's step record
   float acc;
 };
 
@@ -195,25 +130,33 @@ __device__ __forceinline__ float column_sign(int c) {
   return (c & 1) ? 1.0f : -1.0f;
 }
 
-// A deep step in every lane at once: the pivot column's L live entries
-// come from lane `src` by shuffles, and each lane works out the pivot,
-// its index p and the multipliers itself, with prefix_record's
-// arithmetic, then updates its column v into w as prefix_apply does.
-// Returns the pivot.
-template <int L>
-__device__ __forceinline__ float prefix_step(const float (&v)[L], int src,
-                                             float (&w)[L - 1], int& p) {
-  float u[L];
+// The pivot column's N slots from lane `src`, to every lane.  Slots past
+// the live rows go too (prefix_step masks them): a branch around each
+// shuffle made the restarts cost the kernel 1.4-15 % more on an H100.
+template <int N>
+__device__ __forceinline__ void prefix_column(const float (&v)[N], int src,
+                                              float (&u)[N]) {
 #pragma unroll
-  for (int r = 0; r < L; ++r) u[r] = __shfl_sync(kFullMask, v[r], src);
-  // the pivot: the first of the largest keys (prefix_record's scan),
-  // its value and the lane's own entry on its row
+  for (int r = 0; r < N; ++r) u[r] = __shfl_sync(kFullMask, v[r], src);
+}
+
+// A step in every lane at once, on L live rows of N slots: from the pivot
+// column's entries u, each lane works out the pivot (the first of the
+// largest keys), its index p among the live rows and the multipliers of
+// the other live rows itself, then packs its column v's live entries less
+// the multipliers times its entry on the pivot row into w (w may be v:
+// each slot is read before it is written).  Returns the pivot.  The deep
+// levels take N = L, where the masks fold away.
+template <int N, int NW>
+__device__ __forceinline__ float prefix_step(const float (&u)[N],
+                                             const float (&v)[N], int L,
+                                             float (&w)[NW], int& p) {
   unsigned key = pivot_key(u[0]);
   float piv = u[0], top = v[0];
   p = 0;
 #pragma unroll
-  for (int r = 1; r < L; ++r) {
-    const unsigned kr = pivot_key(u[r]);
+  for (int r = 1; r < N; ++r) {
+    const unsigned kr = r < L ? pivot_key(u[r]) : 0u;  // 0 never wins
     const bool later = kr > key;
     key = later ? kr : key;
     p = later ? r : p;
@@ -223,10 +166,10 @@ __device__ __forceinline__ float prefix_step(const float (&v)[L], int src,
   const float safe = (piv == 0.0f) ? 1.0f : piv;
   const float inv = 1.0f / safe;
 #pragma unroll
-  for (int r = 0; r + 1 < L; ++r) {
+  for (int r = 0; r + 1 < N; ++r) {
     const bool above = r < p;
     const float f = quotient(above ? u[r] : u[r + 1], safe, inv);
-    w[r] = (above ? v[r] : v[r + 1]) - f * top;
+    if (r + 1 < L) w[r] = (above ? v[r] : v[r + 1]) - f * top;
   }
   return piv;
 }
@@ -241,9 +184,10 @@ __device__ __forceinline__ void prefix_level(const float (&S)[M - K],
                                              PrefixWalk<M>& w) {
   constexpr int L = M - K;
   for (; c <= w.n - M + K && w.left > 0; ++c) {
-    float T[L - 1];
+    float u[L], T[L - 1];
+    prefix_column(S, c - w.off, u);
     int p;
-    const float q = prod * prefix_step(S, c - w.off, T, p);
+    const float q = prod * prefix_step(u, S, L, T, p);
     // column c's share of the sign, (-1)^(c + 1), and the pivot's parity
     const float p2 = ((c ^ p) & 1) ? q : -q;
     if constexpr (K == M - 2) {
@@ -269,8 +213,7 @@ __global__ void __launch_bounds__(kPrefixThreads, kPrefixMinBlocks)
   constexpr int D = prefix_deep(M);
   constexpr int K0 = M - D;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* rec_s = reinterpret_cast<float*>(smem);
-  float* acc_s = rec_s + kPrefixWarps * kRecFloats;
+  float* acc_s = reinterpret_cast<float*>(smem);
   int* combo_s = reinterpret_cast<int*>(acc_s + kPrefixWarps);
   float* snap_s =
       reinterpret_cast<float*>(combo_s + kPrefixWarps * kComboInts);
@@ -286,7 +229,6 @@ __global__ void __launch_bounds__(kPrefixThreads, kPrefixMinBlocks)
   w.off = n > 32 ? n - 32 : 0;
   w.lane = lane;
   w.combo = combo_s + warp * kComboInts;
-  w.rec = rec_s + warp * kRecFloats;
   float* snap = snap_s + warp * prefix_snap_floats(M);
   constexpr int lo = prefix_snap_lo(M);
   const int col = lane + w.off;  // this lane's column
@@ -316,18 +258,16 @@ __global__ void __launch_bounds__(kPrefixThreads, kPrefixMinBlocks)
         // a restart: levels from+1..K0 of the prefix combo[0..K0-1], from
         // the staged matrix (from = 0) or level from's snapshot; levels
         // lo..K0-1 are snapshotted on the way
-        float v[M], prod, sgn;
+        float v[M], prod;
         if (from == 0) {
 #pragma unroll
           for (int r = 0; r < M; ++r) v[r] = col < n ? A_s[r * n + col] : 0.0f;
-          prod = 1.0f;
-          sgn = base;
+          prod = base;
         } else {
           const float* si = snap + prefix_snap_base(M, from) * 32 + lane;
 #pragma unroll
           for (int r = 0; r < M; ++r) v[r] = r < M - from ? si[r * 32] : 0.0f;
           prod = si[(M - from) * 32];
-          sgn = si[(M - from + 1) * 32];
         }
 #pragma unroll 1
         for (int k = from; k < K0; ++k) {
@@ -337,32 +277,25 @@ __global__ void __launch_bounds__(kPrefixThreads, kPrefixMinBlocks)
             for (int r = 0; r < M; ++r)
               if (r < M - k) si[r * 32] = v[r];
             si[(M - k) * 32] = prod;
-            si[(M - k + 1) * 32] = sgn;
           }
+          // the pivot column: at level 0 as staged (column 0 has no lane
+          // at n = 33), below it from its lane
           const int ck = w.combo[k];
-          __syncwarp();
+          float u[M];
           if (k == 0) {
-            // the first pivot column as staged (column 0 has no lane at
-            // n = 33)
-            if (lane == 0) {
-              float u[M];
 #pragma unroll
-              for (int r = 0; r < M; ++r) u[r] = A_s[r * n + ck];
-              prefix_record(u, M, w.rec);
-            }
-          } else if (lane == ck - w.off) {
-            prefix_record(v, M - k, w.rec);
+            for (int r = 0; r < M; ++r) u[r] = A_s[r * n + ck];
+          } else {
+            prefix_column(v, ck - w.off, u);
           }
-          __syncwarp();
-          const float cs = column_sign(ck);
           int p;
-          prod *= prefix_apply(v, M - k, w.rec, v, p);
-          sgn = (p & 1) ? -(sgn * cs) : sgn * cs;
+          const float q = prod * prefix_step(u, v, M - k, v, p);
+          prod = ((ck ^ p) & 1) ? q : -q;
         }
         float S[D];
 #pragma unroll
         for (int r = 0; r < D; ++r) S[r] = v[r];
-        prefix_level<M, K0>(S, sgn * prod,
+        prefix_level<M, K0>(S, prod,
                             w.first ? w.combo[K0] : w.combo[K0 - 1] + 1, w);
         if (w.left > 0) {
           // the prefix used up: its successor (positions 0..K0-1)
@@ -392,10 +325,10 @@ __global__ void __launch_bounds__(kPrefixThreads, kPrefixMinBlocks)
   }
 }
 
-// Shared memory per block: the warps' records, sums, combinations and
-// snapshots, the Pascal table and the matrix.
+// Shared memory per block: the warps' sums, combinations and snapshots,
+// the Pascal table and the matrix.
 __host__ __device__ constexpr int prefix_stage_bytes(int m, int n) {
-  return 4 * (kPrefixWarps * (kRecFloats + 1 + kComboInts) +
+  return 4 * (kPrefixWarps * (1 + kComboInts) +
               kPrefixWarps * prefix_snap_floats(m) + (n + 1) * (m + 1) +
               m * n);
 }

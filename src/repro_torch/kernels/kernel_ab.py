@@ -232,8 +232,8 @@ K3_BAR_DONE = {
 # threshold, run length, registered and snapshotted levels, each a
 # constant of the source and its twin in radic_fused.py, and its register
 # cap; and the edits
-# that take out its pivot search (the pivot at index 0), its multipliers
-# (neither computed nor written nor read: each lane uses its own entry)
+# that take out its pivot search (the pivot at index 0), its pivot
+# column's shuffles and its multipliers (each lane uses its own column)
 # and its restarts (every level built from the staged columns, no step)
 PREFIX_CU = "radic_prefix.cu"
 PREFIX_CUH = "radic_prefix.cuh"
@@ -254,25 +254,19 @@ _PREFIX_ALL = _prefix_const(PREFIX_CU, "kPrefixMinGap", "PREFIX_MIN_GAP", 6,
 
 
 _PREFIX_MIN_BLOCKS = "constexpr int kPrefixMinBlocks = 2;"
-# the pivot lane's record (the restarts' step; a baseline's deep step too)
-PREFIX_NO_SEARCH = {"    if (r < L && u > best) {":
-                    "    if (r < 0 && u > best) {  // diag: no search"}
-PREFIX_NO_BCAST = {
-    "    if (r + 1 < L) rec[4 + r] = quotient(r < p ? v[r] : v[r + 1], safe, "
-    "inv);": "    if (r + 1 < L) (void)inv;  // diag: no multipliers",
-    "    const float4 q = r4[g];":
-    "    const float4 q = make_float4(v[0], v[0], v[0], v[0]);  // diag: no "
-    "broadcast"}
-# the deep step by shuffles (prefix_step; None: the parent has none): its
-# search, its column's shuffles and its quotients
+# the step (prefix_step: every level's here, only the deep levels' in a
+# baseline that still has the pivot lane's record): its search, its pivot
+# column's shuffles (in prefix_column here, in a baseline's step) and its
+# quotients
 PREFIX_STEP_NO_SEARCH = {"    const bool later = kr > key;":
-                         "    const bool later = false;  // diag: no search",
-                         None: None}
-PREFIX_STEP_NO_BCAST = {
-    "  for (int r = 0; r < L; ++r) u[r] = __shfl_sync(kFullMask, v[r], src);":
-    "  for (int r = 0; r < L; ++r) u[r] = v[r];  // diag: no broadcast",
-    "    const float f = quotient(above ? u[r] : u[r + 1], safe, inv);":
-    "    const float f = above ? u[r] : u[r + 1];  // diag: no multipliers"}
+                         "    const bool later = false;  // diag: no search"}
+PREFIX_STEP_NO_BCAST = [
+    {"  for (int r = 0; r < N; ++r) u[r] = __shfl_sync(kFullMask, v[r], src);":
+     "  for (int r = 0; r < N; ++r) u[r] = v[r];  // diag: no broadcast",
+     "  for (int r = 0; r < L; ++r) u[r] = __shfl_sync(kFullMask, v[r], src);":
+     "  for (int r = 0; r < L; ++r) u[r] = v[r];  // diag: no broadcast"},
+    {"    const float f = quotient(above ? u[r] : u[r + 1], safe, inv);":
+     "    const float f = above ? u[r] : u[r + 1];  // diag: no multipliers"}]
 PREFIX_NO_RESTART = {"        for (int k = from; k < K0; ++k) {":
                      "        for (int k = K0; k < K0; ++k) {  // diag: no "
                      "restart"}
@@ -457,13 +451,8 @@ EXPERIMENTS = {
                                8),
         "deep12": _prefix_const(PREFIX_CUH, "kPrefixDeep", "PREFIX_DEEP", 10,
                                 12),
-        "diag_no_search": [(PREFIX_CUH, PREFIX_NO_SEARCH),
-                           (PREFIX_CUH, PREFIX_STEP_NO_SEARCH)],
-        "diag_no_bcast": [
-            *((PREFIX_CUH, {old: new})
-              for old, new in PREFIX_NO_BCAST.items()),
-            *((PREFIX_CUH, {old: new, None: None})
-              for old, new in PREFIX_STEP_NO_BCAST.items())],
+        "diag_no_search": [(PREFIX_CUH, PREFIX_STEP_NO_SEARCH)],
+        "diag_no_bcast": [(PREFIX_CUH, e) for e in PREFIX_STEP_NO_BCAST],
         "diag_no_restart": [(PREFIX_CUH, PREFIX_NO_RESTART)],
     }, PREFIX_SHAPES),
     # the prefix walk's dispatch: every shape on the warp kernel
@@ -697,10 +686,7 @@ def _call(lib, kernel: str, As, cts, table, count: int, grids=rf):
     B, m, n = As.shape
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     if kernel in ("K1", "K4"):
-        G = (grids.partial_grid_blocks(m, n, count)
-             if hasattr(grids, "partial_grid_blocks") else
-             grids.grid_blocks(count) if m <= rf.CUDA_MAX_M
-             else grids.warp_grid_blocks(count))
+        G = grids.partial_grid_blocks(m, n, count)
         part = torch.empty((G, B), device="cuda")
         out = torch.empty((B,), device="cuda")
         args = (As.data_ptr(), B, m, n, table.data_ptr(), 0, count,

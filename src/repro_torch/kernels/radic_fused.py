@@ -81,8 +81,8 @@ PLAIN_CHUNK = 2048    # ranks per step of the plain versions
 # intact), the smallest n - m it takes (below it the warp kernel, which
 # measured faster there at a small batch), the widest m it has an
 # instance for, a run's length (at most RUN_MAX ranks, halved down to RUN_MIN
-# while a matrix has fewer than RUNS_WANTED runs), and the floats of a
-# step's record and ints of a warp's combination
+# while a matrix has fewer than RUNS_WANTED runs), and the ints of a
+# warp's combination
 PREFIX_WARPS = 8
 PREFIX_DEEP = 10
 PREFIX_SNAP = 6
@@ -91,7 +91,6 @@ PREFIX_MAX_M = 27
 PREFIX_RUN_MAX = 512
 PREFIX_RUN_MIN = 32
 PREFIX_RUNS_WANTED = 2048
-PREFIX_REC_FLOATS = 40
 PREFIX_COMBO_INTS = 36
 
 
@@ -146,20 +145,19 @@ def partial_grid_blocks(m: int, n: int, count: int) -> int:
 def prefix_snap_levels(m: int) -> range:
     """The levels the prefix walk keeps a snapshot of in shared memory
     (radic_prefix.cuh ``prefix_snap_lo``): max(1, K0 - PREFIX_SNAP) ..
-    K0 - 1, K0 = m - min(PREFIX_DEEP, m - 1)."""
+    K0 - 1, K0 = m - min(PREFIX_DEEP, m - 1); level k holds its m - k
+    live entries and the signed product, a lane each."""
     K0 = m - min(PREFIX_DEEP, m - 1)
     return range(max(1, K0 - PREFIX_SNAP), K0)
 
 
 def prefix_smem_bytes(m: int, n: int) -> int:
     """Shared memory per block of the prefix walk (radic_prefix.cuh
-    ``prefix_stage_bytes``): the warps' step records, sums,
-    combinations and snapshots (each level's m - k live entries, the
-    product and the sign, a lane each), the Pascal table and the
-    matrix."""
-    snap = 32 * sum(m - k + 2 for k in prefix_snap_levels(m))
-    return 4 * (PREFIX_WARPS * (PREFIX_REC_FLOATS + 1 + PREFIX_COMBO_INTS
-                                + snap)
+    ``prefix_stage_bytes``): the warps' sums, combinations and
+    snapshots (each level's m - k live entries and the signed product, a
+    lane each), the Pascal table and the matrix."""
+    snap = 32 * sum(m - k + 1 for k in prefix_snap_levels(m))
+    return 4 * (PREFIX_WARPS * (1 + PREFIX_COMBO_INTS + snap)
                 + (n + 1) * (m + 1) + m * n)
 
 
